@@ -1,0 +1,694 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port of RStore on one NVIDIA H100.
+
+    python3 chip_smoke.py [--seed N] [--base-log2 20] [--versions 64]
+
+Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``,
+then:
+
+1. k=1 main path: the default ``RStoreConfig()`` over a ``ShardedKVS`` of four
+   ``ShardedDeviceKVS`` tables on the card.  A seeded A-family chain (2^20
+   base records of 256 bytes, 64 versions, 5% of live records touched per
+   version, 90/5/5 modify/insert/delete) goes in through ``rs.writer()``
+   sessions; four waves of 64 mixed queries come out through
+   ``StoreQueryEngine.serve``.  Every answer is checked against a plain dict
+   oracle kept while the data was generated.
+2. k=3 main path (§3.4 sub-chunk compression): 2^16 base records, 32
+   versions, bounded payload changes (p_d = 0.1), ``rs.build()`` and one
+   checked 64-query wave.
+3. Kernel phases: each kernel against its plain PyTorch version on the card,
+   bit-exact, at the shapes the main paths gave it and at the shapes named
+   below, with CUDA-event times beside the bound.
+
+Each kernel wrapper counts its own launches; the counts are zeroed just
+before each main path and read just after it.  Every phase raises on
+failure.  The last line is ``{"ok": true, "device": {...}}``; the line before
+it the card's name and power limit; the one before that the per-kernel JSON.
+Exits non-zero, printing no result, when no card is visible.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import resource
+import subprocess
+import sys
+import time
+from typing import Callable, Dict, List, Tuple
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+RECORD = 256
+# Slot size of the device tables.  The reference's 64 KiB default would pad
+# every chunk map (about 3 KiB at this record count) to a whole slot.
+SLOT_BYTES = 4096
+# Bytes written between launches to evict a kernel's inputs from the 50 MB L2
+# when timing it cold.
+L2_FLUSH_BYTES = 256 << 20
+# H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth, and
+# the 32-bit rate outside the tensor cores, the table's entry for plain
+# integer word operations.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_WORD_OPS_PER_S = 67e12
+
+
+def log(*a) -> None:
+    print(*a, flush=True)
+
+
+def gpu_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+    return out.splitlines()[0]
+
+
+# ------------------------------------------------------------------ workload
+class Chain:
+    """A seeded A-family chain (linear, ``pct`` of live records touched per
+    version, 90/5/5 modify/insert/delete) plus the dict oracle: the full
+    contents of each target version and the history of each tracked key,
+    both recorded while the chain is generated, before any ingest."""
+
+    def __init__(self, seed: int, n_base: int, n_versions: int,
+                 pct: float = 0.05, p_d=None) -> None:
+        rng = np.random.default_rng(seed)
+        self.rng = rng
+        self.n_versions = n_versions
+        self.targets = sorted(set(int(v) for v in rng.choice(
+            np.arange(n_versions // 2, n_versions), size=4, replace=False)))
+        self.track = [int(k) for k in rng.choice(n_base, 32, replace=False)]
+        self.pct, self.p_d = pct, p_d
+        self.n_base = n_base
+        self.versions: Dict[int, Dict[int, bytes]] = {}
+        self.history: Dict[int, List[Tuple[int, bytes]]] = {
+            k: [] for k in self.track}
+        self.ops: List[Tuple] = []           # ("root", recs) | ("commit", ...)
+        self.n_records = 0
+        self._generate()
+
+    def _fresh(self, n: int) -> List[bytes]:
+        blob = self.rng.integers(0, 256, size=n * RECORD,
+                                 dtype=np.uint8).tobytes()
+        return [blob[i * RECORD:(i + 1) * RECORD] for i in range(n)]
+
+    def _mutated(self, parents: List[bytes]) -> List[bytes]:
+        if self.p_d is None:
+            return self._fresh(len(parents))
+        arr = np.frombuffer(b"".join(parents), dtype=np.uint8).reshape(
+            len(parents), RECORD).copy()
+        span = max(1, int(RECORD * self.p_d))
+        offs = self.rng.integers(0, RECORD - span + 1, size=len(parents))
+        cols = offs[:, None] + np.arange(span)[None, :]
+        arr[np.arange(len(parents))[:, None], cols] = self.rng.integers(
+            0, 256, size=(len(parents), span), dtype=np.uint8)
+        blob = arr.tobytes()
+        return [blob[i * RECORD:(i + 1) * RECORD] for i in range(len(parents))]
+
+    def _note(self, vid: int, adds: Dict[int, bytes]) -> None:
+        for k in self.track:
+            if k in adds:
+                self.history[k].append((vid, adds[k]))
+
+    def _generate(self) -> None:
+        rng = self.rng
+        state = dict(zip(range(self.n_base), self._fresh(self.n_base)))
+        self.ops.append(("root", dict(state)))
+        self._note(0, state)
+        self.n_records = self.n_base
+        if 0 in self.targets:
+            self.versions[0] = dict(state)
+        keys = np.arange(self.n_base, dtype=np.int64)
+        next_key = self.n_base
+        for vid in range(1, self.n_versions):
+            n_sel = max(1, int(len(keys) * self.pct))
+            sel = rng.choice(keys, size=n_sel, replace=False)
+            n_mod = int(n_sel * 0.90)
+            n_del = int(n_sel * 0.05)
+            n_ins = n_sel - n_mod - n_del
+            mod = sel[:n_mod].tolist()
+            dels = sel[n_mod:n_mod + n_del].tolist()
+            new = list(range(next_key, next_key + n_ins))
+            next_key += n_ins
+            adds = dict(zip(mod, self._mutated([state[k] for k in mod])))
+            adds.update(zip(new, self._fresh(n_ins)))
+            for k in dels:
+                del state[k]
+            state.update(adds)
+            keys = np.concatenate([keys[~np.isin(keys, dels)],
+                                   np.asarray(new, dtype=np.int64)])
+            self.ops.append(("commit", [vid - 1], adds, dels))
+            self._note(vid, adds)
+            self.n_records += len(adds)
+            if vid in self.targets:
+                self.versions[vid] = dict(state)
+        self.max_key = next_key
+
+    # ------------------------------------------------------------ queries
+    def wave(self, Q, vid: int, seed: int):
+        """64 queries at version ``vid``: 1 version, 24 record, 8 records of
+        16 keys, 16 ranges of 256 keys, 7 evolution, 4 or_(record, range),
+        4 and_(range, records) — each with its oracle answer."""
+        rng = np.random.default_rng(seed)
+        cur = self.versions[vid]
+        key = lambda: int(rng.integers(0, self.max_key))  # noqa: E731
+
+        def rng_dict(lo, hi):
+            return {k: cur[k] for k in range(lo, hi + 1) if k in cur}
+
+        qs = [(Q.version(vid), cur)]
+        for _ in range(24):
+            k = key()
+            qs.append((Q.record(vid, k), cur.get(k)))
+        for _ in range(8):
+            ks = [key() for _ in range(16)]
+            qs.append((Q.records(vid, ks), {k: cur[k] for k in ks if k in cur}))
+        for _ in range(16):
+            lo = key()
+            qs.append((Q.range(vid, lo, lo + 255), rng_dict(lo, lo + 255)))
+        for k in rng.choice(self.track, 7, replace=False).tolist():
+            qs.append((Q.evolution(k), self.history[k]))
+        for _ in range(4):
+            k, lo = key(), key()
+            want = rng_dict(lo, lo + 255)
+            if k in cur:
+                want[k] = cur[k]
+            qs.append((Q.or_(Q.record(vid, k), Q.range(vid, lo, lo + 255)),
+                       want))
+        for _ in range(4):
+            lo = key()
+            ks = [lo + int(d) for d in rng.integers(0, 512, 16)]
+            want = {k: cur[k] for k in ks if k in cur and k <= lo + 255}
+            qs.append((Q.and_(Q.range(vid, lo, lo + 255), Q.records(vid, ks)),
+                       want))
+        assert len(qs) == 64
+        return [q for q, _ in qs], [w for _, w in qs]
+
+
+def ingest(rs, chain: Chain, flush_on_close: bool = True) -> Dict[str, float]:
+    """Write the chain through two ``rs.writer()`` sessions: the root alone,
+    then every commit.  Returns host-clock seconds of staging and of the
+    group flushes (session closes)."""
+    stage = flush = 0.0
+    for sess in (chain.ops[:1], chain.ops[1:]):
+        t0 = time.perf_counter()
+        w = rs.writer(flush_on_close=flush_on_close)
+        for op in sess:
+            if op[0] == "root":
+                w.init_root(op[1])
+            else:
+                w.commit(op[1], op[2], op[3])
+        t1 = time.perf_counter()
+        w.close()
+        t2 = time.perf_counter()
+        stage += t1 - t0
+        flush += t2 - t1
+    return {"stage_s": stage, "flush_s": flush}
+
+
+def check_wave(batch, wants, what: str) -> None:
+    if len(batch) != len(wants):
+        raise AssertionError(f"{what}: {len(batch)} results for "
+                             f"{len(wants)} queries")
+    for i, (r, want) in enumerate(zip(batch, wants)):
+        got = r.value
+        if r.query.kind == "evolution":
+            got = list(got)
+        if got != want:
+            raise AssertionError(f"{what}: query {i} ({r.query.kind}) "
+                                 "disagrees with the dict oracle")
+
+
+class Timers:
+    """Host-clock (and CUDA-event) time spent inside named functions,
+    installed by wrapping module attributes for the length of a run."""
+
+    def __init__(self, torch) -> None:
+        self.torch = torch
+        self.t: Dict[str, float] = {}
+        self._undo: List[Callable[[], None]] = []
+
+    def wrap(self, owner, name: str, label: str, device_time: bool = False):
+        fn = getattr(owner, name)
+        torch = self.torch
+
+        def timed(*a, **k):
+            if device_time:
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            self.t[label] = self.t.get(label, 0.0) + time.perf_counter() - t0
+            if device_time:
+                e1.record()
+                e1.synchronize()
+                key = label + "_device"
+                self.t[key] = self.t.get(key, 0.0) + e0.elapsed_time(e1) / 1e3
+            return out
+        had, raw = name in vars(owner), vars(owner).get(name)
+        setattr(owner, name, timed)
+
+        def undo():
+            if had:
+                setattr(owner, name, raw)     # e.g. a staticmethod, as it was
+            else:
+                delattr(owner, name)          # an instance attribute we added
+        self._undo.append(undo)
+
+    def reset(self) -> None:
+        self.t = {}
+
+    def close(self) -> None:
+        for u in reversed(self._undo):
+            u()
+        self._undo = []
+
+
+def cuda_ms(torch, fn, iters: int = 20) -> float:
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(iters):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / iters
+
+
+def cold_ms(torch, fn, iters: int = 20) -> float:
+    """Mean CUDA-event time of one ``fn()`` launched with a cold L2: each
+    launch follows a write of ``L2_FLUSH_BYTES`` that is outside the events."""
+    scratch = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    total = 0.0
+    for _ in range(iters):
+        scratch.zero_()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        total += e0.elapsed_time(e1)
+    return total / iters
+
+
+def device_busy(torch, fn):
+    """(device-busy seconds, wall seconds, top device ops) of one ``fn()``
+    under torch.profiler with CUDA activity: the union of the time spans of
+    every device-side event (kernels and copies) over the host-clock span."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    busy_us, end = 0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy_us += b - a
+            end = b
+        elif b > end:
+            busy_us += b - end
+            end = b
+    per_name: Dict[str, float] = {}
+    for e in dev:
+        per_name[e.name] = per_name.get(e.name, 0) + e.time_range.elapsed_us()
+    top = "; ".join(f"{k} {us / 1e3:.3f} ms" for k, us in sorted(
+        per_name.items(), key=lambda kv: -kv[1])[:4])
+    return busy_us / 1e6, wall, top
+
+
+# ------------------------------------------------------------------- phases
+def main_path_k1(args, torch, dev, T, eng_mod, kops, kbitmap, kdelta):
+    chain = Chain(args.seed, 1 << args.base_log2, args.versions)
+    log(f"[k1] chain: {1 << args.base_log2} base records, {args.versions} "
+        f"versions, {chain.n_records} stored records "
+        f"({chain.n_records * RECORD / 2**30:.3f} GiB of payload), "
+        f"targets {chain.targets}")
+    kvs = T.ShardedKVS([T.ShardedDeviceKVS(slot_bytes=SLOT_BYTES, device=dev)
+                        for _ in range(4)])
+    rs = T.RStore(T.RStoreConfig(), kvs, device=dev)
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    ing = ingest(rs, chain)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    table_bytes = sum(s.table_bytes for s in kvs.shards)
+    log(f"[k1] ingest: {ingest_s:.3f} s ({chain.n_records / ingest_s:.0f} "
+        f"records/s); staging {ing['stage_s']:.3f} s, group flushes "
+        f"{ing['flush_s']:.3f} s; {rs.n_chunks} chunks; write round trips "
+        f"{kvs.stats.n_put_queries}")
+    log(f"[k1] device tables: {table_bytes} bytes "
+        f"({table_bytes / 2**30:.3f} GiB), bytes stored "
+        f"{kvs.total_stored_bytes()}; torch.cuda.memory_allocated "
+        f"{torch.cuda.memory_allocated() - mem0} bytes above the start")
+
+    engine = eng_mod.StoreQueryEngine(rs)
+    timers = Timers(torch)
+    from repro_torch.core import api as api_mod
+    from repro_torch.core import chunkstore, plan as plan_mod
+    timers.wrap(kops, "bitmap_vm_batch", "bitmap_vm_batch")
+    timers.wrap(kbitmap, "bitmap_vm", "kernel", device_time=True)
+    timers.wrap(kvs, "multiget", "gather")
+    timers.wrap(chunkstore.StoredChunk, "from_bytes", "parse")
+    timers.wrap(plan_mod, "answer", "answer")
+    timers.wrap(api_mod.Snapshot, "plan_batch", "plan_batch")
+    waves, bitmap_inputs = [], []
+    orig_vm = kbitmap.bitmap_vm
+
+    def recording_vm(regs, prog):
+        bitmap_inputs.append((regs.clone(), prog.clone()))
+        return orig_vm(regs, prog)
+    kbitmap.bitmap_vm = recording_vm
+    try:
+        for w, vid in enumerate(chain.targets):
+            qs, wants = chain.wave(T.Q, vid, args.seed * 100 + w)
+            waves.append((qs, wants))
+        engine.snapshot()                   # pin once, outside the timing
+        kbitmap.LAUNCHES = kdelta.LAUNCHES = 0
+        l0 = kops.BITMAP_LAUNCHES
+        results = []
+        for w, (qs, wants) in enumerate(waves):
+            timers.reset()
+            q0 = kvs.stats.n_queries
+            b0 = kvs.stats.bytes_fetched
+            t0 = time.perf_counter()
+            batch = engine.serve(qs)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            results.append((batch, dict(timers.t), dt,
+                            kvs.stats.n_queries - q0,
+                            kvs.stats.bytes_fetched - b0))
+        launches = {"bitmap_vm": kbitmap.LAUNCHES,
+                    "xor_delta": kdelta.LAUNCHES,
+                    "BITMAP_LAUNCHES": kops.BITMAP_LAUNCHES - l0}
+    finally:
+        kbitmap.bitmap_vm = orig_vm
+        timers.close()
+    busy_s, wall_s, top = device_busy(torch, lambda: engine.serve(waves[0][0]))
+    log(f"[k1] profiled re-run of wave 0: {wall_s:.4f} s wall, device busy "
+        f"{busy_s:.6f} s ({busy_s / wall_s:.3%}), idle {1 - busy_s / wall_s:.3%}"
+        f" (torch.profiler, CUDA activity); top device ops: {top}")
+    for w, ((batch, t, dt, rts, nbytes), (qs, wants)) in enumerate(
+            zip(results, waves)):
+        check_wave(batch, wants, f"k1 wave {w}")
+        if rts > 4:
+            raise AssertionError(f"k1 wave {w}: {rts} read round trips > 4")
+        kern = t.get("kernel_device", 0.0)
+        plan_host = t.get("plan_batch", 0.0) - t.get("bitmap_vm_batch", 0.0)
+        decode = t.get("answer", 0.0)
+        log(f"[k1] wave {w} @v{chain.targets[w]}: {dt:.4f} s, "
+            f"{len(qs) / dt:.1f} queries/s, {rts} read round trips, "
+            f"{nbytes} bytes gathered, {batch.batch.records_returned} records; "
+            f"kernel {kern:.6f} s ({kern / dt:.2%}), host planning "
+            f"{plan_host:.4f} s ({plan_host / dt:.2%}), bitmap entry incl. "
+            f"copies {t.get('bitmap_vm_batch', 0.0):.4f} s, gather "
+            f"{t.get('gather', 0.0):.4f} s ({t.get('gather', 0.0) / dt:.2%}), "
+            f"chunk parse {t.get('parse', 0.0):.4f} s "
+            f"({t.get('parse', 0.0) / dt:.2%}), host decode/answer "
+            f"{decode:.4f} s ({decode / dt:.2%})")
+    if launches["BITMAP_LAUNCHES"] != len(waves):
+        raise AssertionError(f"BITMAP_LAUNCHES delta {launches} != "
+                             f"{len(waves)} waves")
+    if launches["bitmap_vm"] != len(waves):
+        raise AssertionError(f"bitmap_vm kernel launches {launches} != "
+                             f"{len(waves)} waves")
+    log(f"[k1] launches during the waves: {json.dumps(launches)}")
+    log("[k1] every answer equals the dict oracle")
+    return launches, bitmap_inputs
+
+
+def main_path_k3(args, torch, dev, T, kops, kbitmap, kdelta):
+    chain = Chain(args.seed + 1, 1 << args.k3_base_log2, args.k3_versions,
+                  p_d=0.1)
+    log(f"[k3] chain: {1 << args.k3_base_log2} base records, "
+        f"{args.k3_versions} versions, {chain.n_records} stored records, "
+        f"p_d 0.1, targets {chain.targets}")
+    kvs = T.ShardedKVS([T.ShardedDeviceKVS(slot_bytes=SLOT_BYTES, device=dev)
+                        for _ in range(4)])
+    rs = T.RStore(T.RStoreConfig(k=3), kvs, device=dev)
+    delta_inputs = []
+    orig = kdelta.xor_delta
+
+    def recording_delta(p, c):
+        delta_inputs.append(tuple(p.shape))
+        return orig(p, c)
+    kdelta.xor_delta = recording_delta
+    try:
+        t0 = time.perf_counter()
+        ingest(rs, chain, flush_on_close=False)
+        stage_s = time.perf_counter() - t0
+        kbitmap.LAUNCHES = kdelta.LAUNCHES = 0
+        t0 = time.perf_counter()
+        rs.build()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        build_launches = kdelta.LAUNCHES
+        vid = chain.targets[-1]
+        qs, wants = chain.wave(T.Q, vid, args.seed * 100 + 99)
+        t0 = time.perf_counter()
+        batch = rs.snapshot().execute(qs)
+        torch.cuda.synchronize()
+        wave_s = time.perf_counter() - t0
+        launches = {"bitmap_vm": kbitmap.LAUNCHES,
+                    "xor_delta": kdelta.LAUNCHES}
+    finally:
+        kdelta.xor_delta = orig
+    check_wave(batch, wants, "k3 wave")
+    st = rs.storage_stats()
+    log(f"[k3] staging {stage_s:.3f} s, build {build_s:.3f} s "
+        f"({build_launches} xor_delta launches), wave {wave_s:.4f} s "
+        f"({batch.batch.kvs_queries} read round trips, "
+        f"{batch.batch.bytes_fetched} bytes gathered); stored chunk bytes "
+        f"{st['stored_chunk_bytes']} vs raw unique {st['raw_unique_bytes']}")
+    if launches["xor_delta"] <= 0:
+        raise AssertionError("the k=3 path launched no xor_delta kernel")
+    if st["stored_chunk_bytes"] >= st["raw_unique_bytes"]:
+        raise AssertionError("sub-chunk compression stored no fewer bytes")
+    log(f"[k3] launches during build + wave: {json.dumps(launches)}; "
+        f"largest xor_delta input {max(delta_inputs)}")
+    log("[k3] every answer equals the dict oracle")
+    return launches
+
+
+def kernel_phases(torch, dev, kbitmap, kdelta, kref, bitmap_inputs, launches):
+    """Each kernel against its plain version, bit-exact, then timed.  ``ms``
+    is the kernel alone: CUDA events around back-to-back launches of the C
+    entry point on preallocated buffers, so the Python wrapper's own cost
+    (allocation, checks; ``wrapper_ms`` in the log) stays out of it.  Those
+    launches find their inputs in L2, as the main path's do: it copies them
+    to the card just before each launch.  ``cold_ms`` times single launches
+    after L2 has been overwritten."""
+    from repro_torch.kernels import _build
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator(device="cpu").manual_seed(1234)
+
+    def launch_ms(entry, *args) -> Tuple[float, float]:
+        """(warm ms over 200 back-to-back launches, cold-L2 ms)."""
+        rc = entry(*args, stream)
+        _build.check(rc, entry.__name__)
+        return (cuda_ms(torch, lambda: entry(*args, stream), iters=200),
+                cold_ms(torch, lambda: entry(*args, stream)))
+
+    def rand_words(*shape):
+        return torch.randint(-2**31, 2**31 - 1, shape, generator=gen,
+                             dtype=torch.int32).to(dev)
+
+    def rand_prog(S, P):
+        prog = torch.empty((P, 4), dtype=torch.int32)
+        prog[:, 0] = torch.randint(0, 3, (P,), generator=gen)
+        prog[:, 1:] = torch.randint(0, S, (P, 3), generator=gen)
+        return prog.to(dev)
+
+    def exact(a, b) -> int:
+        return int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) \
+            if a.numel() else 0
+
+    # ---- bitmap_vm: the waves' own programs, then the named shapes
+    cases = [("wave", r, p) for r, p in bitmap_inputs]
+    cases.append(("random", rand_words(256, 4096), rand_prog(256, 128)))
+    cases.append(("P=0", rand_words(256, 4096), rand_prog(256, 0)))
+    cases.append(("all-zero", torch.zeros((64, 1024), dtype=torch.int32,
+                                          device=dev), rand_prog(64, 64)))
+    err = 0
+    for name, regs, prog in cases:
+        o1, c1 = kbitmap.bitmap_vm(regs, prog)
+        o2, c2 = kref.bitmap_vm_ref(regs, prog)
+        torch.cuda.synchronize()
+        e = max(exact(o1, o2), exact(c1, c2))
+        if e:
+            raise AssertionError(f"bitmap_vm {name} {tuple(regs.shape)} "
+                                 f"P={prog.shape[0]} disagrees: {e}")
+        err = max(err, e)
+    rows = []
+
+    def vm_row(regs, prog):
+        S, W = regs.shape
+        P = prog.shape[0]
+        nbytes = 2 * S * W * 4 + P * 16 + S * 4
+        nops = P * W + 2 * S * W           # one op per instruction and word,
+        #                                    popcount + sum per word
+        out = torch.empty_like(regs)
+        cnt = torch.zeros(S, dtype=torch.int32, device=dev)
+        ms, cold = launch_ms(lib.bitmap_vm_launch, regs.data_ptr(),
+                             prog.data_ptr(), out.data_ptr(), cnt.data_ptr(),
+                             S, W, P)
+        wrapper = cuda_ms(torch, lambda: kbitmap.bitmap_vm(regs, prog))
+        plain = cuda_ms(torch, lambda: kref.bitmap_vm_ref(regs, prog), 5)
+        b_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        b_ops = nops / PEAK_WORD_OPS_PER_S * 1e3
+        return dict(S=S, W=W, P=P, ms=ms, cold_ms=cold, wrapper_ms=wrapper,
+                    plain_ms=plain,
+                    bound_ms=max(b_bytes, b_ops),
+                    bound_by="bytes" if b_bytes >= b_ops else "operations")
+
+    for name, regs, prog in cases:
+        r = vm_row(regs, prog)
+        log(f"[kernels] bitmap_vm {name} S={r['S']} W={r['W']} P={r['P']}: "
+            f"{r['ms']:.5f} ms (cold L2 {r['cold_ms']:.5f} ms, wrapper "
+            f"{r['wrapper_ms']:.5f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.6f} ms by {r['bound_by']}), bit-exact")
+        rows.append((name, r))
+    main = rows[0][1]                   # the first wave's own program
+    vm = {"name": "bitmap_vm", "route": "cuda",
+          "source": "src/repro_torch/kernels/csrc/bitmap_vm.cu",
+          "replaces": "src/repro/kernels/bitmap.py:142",
+          "launches": launches["k1"]["bitmap_vm"], "max_abs_err": err,
+          "ms": main["ms"], "cold_ms": main["cold_ms"],
+          "plain_ms": main["plain_ms"],
+          "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+          "library_ms": None,
+          "shape": [main["S"], main["W"], main["P"]]}
+
+    # ---- xor_delta: the kernel's scalar branch (a width that is not a
+    # multiple of 4 words; inputs 4 bytes off 16-byte alignment), then the
+    # vector branch at (N, 64) words = 256-byte records
+    err = 0
+    N, W = 4096, RECORD // 4
+    flat_p, flat_c = rand_words(N * W + 1), rand_words(N * W + 1)
+    for name, p, c in (
+            ("W=63", rand_words(N, W - 1), rand_words(N, W - 1)),
+            ("unaligned", flat_p[1:].view(N, W), flat_c[1:].view(N, W))):
+        c[::2] = p[::2]
+        d1, n1 = kdelta.xor_delta(p, c)
+        d2, n2 = kref.xor_delta_ref(p, c)
+        torch.cuda.synchronize()
+        e = max(exact(d1, d2), exact(n1, n2))
+        if e:
+            raise AssertionError(f"xor_delta scalar branch {name} "
+                                 f"{tuple(p.shape)} disagrees: {e}")
+        log(f"[kernels] xor_delta scalar branch {name} {tuple(p.shape)}: "
+            "bit-exact")
+    xrows = {}
+    for N in (4096, 65536):
+        p, c = rand_words(N, RECORD // 4), rand_words(N, RECORD // 4)
+        c[::2] = p[::2] ^ (rand_words(N // 2, RECORD // 4) & 0x0F)
+        d1, n1 = kdelta.xor_delta(p, c)
+        d2, n2 = kref.xor_delta_ref(p, c)
+        torch.cuda.synchronize()
+        e = max(exact(d1, d2), exact(n1, n2))
+        if e:
+            raise AssertionError(f"xor_delta N={N} disagrees: {e}")
+        d, n = torch.empty_like(p), torch.empty(N, dtype=torch.int32,
+                                                 device=dev)
+        ms, cold = launch_ms(lib.xor_delta_launch, p.data_ptr(), c.data_ptr(),
+                             d.data_ptr(), n.data_ptr(), N, RECORD // 4, 1)
+        wrapper = cuda_ms(torch, lambda: kdelta.xor_delta(p, c))
+        plain = cuda_ms(torch, lambda: kref.xor_delta_ref(p, c))
+        lib_ms = cuda_ms(torch, lambda: torch.bitwise_xor(p, c))
+        nbytes = 3 * N * (RECORD // 4) * 4 + 4 * N
+        b_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        b_ops = 2 * N * (RECORD // 4) / PEAK_WORD_OPS_PER_S * 1e3
+        xrows[N] = dict(ms=ms, cold_ms=cold, plain_ms=plain,
+                        library_ms=lib_ms, bound_ms=max(b_bytes, b_ops),
+                        bound_by="bytes" if b_bytes >= b_ops else "operations")
+        log(f"[kernels] xor_delta N={N} W={RECORD // 4}: {ms:.5f} ms (cold L2 "
+            f"{cold:.5f} ms, wrapper "
+            f"{wrapper:.5f} ms, plain {plain:.5f} ms, torch.bitwise_xor "
+            f"{lib_ms:.5f} ms, bound "
+            f"{xrows[N]['bound_ms']:.6f} ms by {xrows[N]['bound_by']}), "
+            "bit-exact")
+        err = max(err, e)
+    x = xrows[65536]
+    xd = {"name": "xor_delta", "route": "cuda",
+          "source": "src/repro_torch/kernels/csrc/xor_delta.cu",
+          "replaces": "src/repro/kernels/deltaenc.py:47",
+          "launches": launches["k3"]["xor_delta"], "max_abs_err": err,
+          "ms": x["ms"], "cold_ms": x["cold_ms"], "plain_ms": x["plain_ms"],
+          "bound_ms": x["bound_ms"],
+          "bound_by": x["bound_by"], "library_ms": x["library_ms"],
+          "shape": [65536, RECORD // 4]}
+    return [vm, xd]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--base-log2", type=int, default=20)
+    ap.add_argument("--versions", type=int, default=64)
+    ap.add_argument("--k3-base-log2", type=int, default=16)
+    ap.add_argument("--k3-versions", type=int, default=32)
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script "
+              "runs on the card only", file=sys.stderr)
+        return 2
+    import repro_torch.core as T
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import bitmap as kbitmap
+    from repro_torch.kernels import deltaenc as kdelta
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.serve import engine as eng_mod
+
+    t_start = time.perf_counter()
+    card = gpu_line()
+    log(f"[setup] {card}")
+    log(f"[setup] python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    _build.library()
+    log(f"[setup] kernels built in {_build.BUILD_INFO['seconds']:.2f} s -> "
+        f"{os.path.relpath(str(_build.BUILD_INFO['library']), ROOT)}")
+    for line in str(_build.BUILD_INFO.get("ptxas", "")).splitlines():
+        if "Used" in line or "spill" in line:
+            log(f"[setup] ptxas {line.strip()}")
+
+    launches = {}
+    launches["k1"], bitmap_inputs = main_path_k1(
+        args, torch, dev, T, eng_mod, kops, kbitmap, kdelta)
+    launches["k3"] = main_path_k3(args, torch, dev, T, kops, kbitmap, kdelta)
+    kernels = kernel_phases(torch, dev, kbitmap, kdelta, kref,
+                            bitmap_inputs, launches)
+    log(f"[done] {time.perf_counter() - t_start:.1f} s in all; peak device "
+        f"memory {torch.cuda.max_memory_allocated()} bytes; peak host RSS "
+        f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss} KiB")
+    print(json.dumps({"kernels": kernels}))
+    print(gpu_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,337 @@
+"""Physical chunk layout + chunk maps (§2.4).
+
+A stored chunk holds (a) its records' payloads grouped into *sub-chunks*
+(singleton sub-chunks unless §3.4 compression is enabled: records of one
+primary key, connected in the version tree, XOR-delta'd against their
+sub-chunk parent and zlib'd together), and (b) the chunk map ``M^{C_i}`` —
+for each record, the set of versions containing it, stored as a bitmap over
+version indices ("the adjacency list in each chunk map file is then converted
+to a bitmap, compressed and stored in the KVS").
+"""
+from __future__ import annotations
+
+import functools
+import struct
+import zlib
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..kernels import ops as kops
+from .version_graph import VersionGraph
+
+
+# ------------------------------------------------------------------ chunk map
+@dataclass
+class ChunkMap:
+    """Per-chunk slice of the 3-D mapping M (Fig. 3): record composite keys +
+    a (n_rec, W) uint32 bitmap of version-index membership."""
+
+    cks: np.ndarray            # (n_rec,) int64 packed composite keys
+    bitmap: np.ndarray         # (n_rec, W) uint32
+    n_versions: int
+
+    def records_in_version(self, vidx: int) -> np.ndarray:
+        w, bit = divmod(vidx, 32)
+        hit = (self.bitmap[:, w] >> np.uint32(bit)) & np.uint32(1)
+        return np.flatnonzero(hit)
+
+    def versions_of_record(self, local_idx: int) -> np.ndarray:
+        row = self.bitmap[local_idx]
+        out = []
+        for w in range(len(row)):
+            v = int(row[w])
+            while v:
+                b = v & -v
+                out.append(w * 32 + b.bit_length() - 1)
+                v ^= b
+        return np.asarray([o for o in out if o < self.n_versions], dtype=np.int64)
+
+    def to_bytes(self) -> bytes:
+        raw = self.bitmap.astype("<u4").tobytes()
+        comp = zlib.compress(raw, level=6)
+        head = struct.pack("<IIII", len(self.cks), self.bitmap.shape[1],
+                           self.n_versions, len(comp))
+        return head + self.cks.astype("<i8").tobytes() + comp
+
+    @staticmethod
+    def from_bytes(buf: bytes) -> "ChunkMap":
+        n_rec, w, n_ver, clen = struct.unpack_from("<IIII", buf, 0)
+        off = 16
+        cks = np.frombuffer(buf, dtype="<i8", count=n_rec, offset=off).astype(np.int64)
+        off += n_rec * 8
+        raw = zlib.decompress(buf[off:off + clen])
+        bitmap = np.frombuffer(raw, dtype="<u4").reshape(n_rec, w).astype(np.uint32)
+        return ChunkMap(cks=cks, bitmap=bitmap, n_versions=n_ver)
+
+
+# --------------------------------------------------------------- stored chunk
+@dataclass
+class SubChunkBlob:
+    """One compressed sub-chunk: local record indices (first = raw base, the
+    rest XOR-delta'd against their sub-chunk tree parent) + payload blob.
+    The three index columns are tuples of ints (serialized as int32)."""
+
+    local_ids: Sequence[int]   # local record indices, tree (BFS) order
+    parent_pos: Sequence[int]  # position *within sub-chunk* of each
+    #                            record's delta parent (-1 = stored raw)
+    lengths: Sequence[int]     # true payload lengths
+    blob: bytes                # zlib(concat of raw-or-delta payloads)
+
+
+_HEAD = struct.Struct("<III")
+_SUB_HEAD = struct.Struct("<II")
+
+
+@functools.lru_cache(maxsize=None)
+def _sub_cols(n: int) -> struct.Struct:
+    """The three int32 columns of an ``n``-record sub-chunk."""
+    return struct.Struct(f"<{3 * n}i")
+
+
+@dataclass
+class StoredChunk:
+    chunk_id: int
+    cks: np.ndarray                      # (n_rec,) packed composite keys
+    subchunks: List[SubChunkBlob]
+    raw_bytes: int = 0                   # un-encoded payload bytes
+    stored_bytes: int = 0                # encoded (what the KVS holds)
+    # memoized serialization: chunks are write-once, and the build paths
+    # both size the encoding and stage it for the group commit
+    _encoded: Optional[bytes] = field(default=None, repr=False, compare=False)
+
+    def payloads(self, device=None) -> Dict[int, bytes]:
+        """Decode every record: local index -> payload bytes.
+
+        Delta parents precede their children within a sub-chunk
+        (``parent_pos[i] < i``, tree order), so records decode level by
+        level of the sub-chunk trees: one ``xor_delta_pairs`` call per level
+        for the whole chunk.  Singleton sub-chunks (k=1) need none."""
+        out: Dict[int, bytes] = {}
+        decoded: List[List[Optional[bytes]]] = []
+        # level -> [(sub-chunk, position, parent position, true length,
+        #            stored piece)]
+        by_level: Dict[int, List[Tuple[int, int, int, int, bytes]]] = {}
+        for s, sc in enumerate(self.subchunks):
+            raw = zlib.decompress(sc.blob)
+            lengths, ppos = sc.lengths, sc.parent_pos
+            if len(lengths) == 1 and ppos[0] < 0:      # a raw singleton
+                decoded.append([raw[:lengths[0]]])
+                continue
+            dec: List[Optional[bytes]] = [None] * len(lengths)
+            level = [0] * len(lengths)
+            off = 0
+            for i, (ln, p) in enumerate(zip(lengths, ppos)):
+                # deltas are stored at the max(parent, child) length
+                stored_len = ln if p < 0 else max(ln, lengths[p])
+                piece = raw[off:off + stored_len]
+                off += stored_len
+                if p < 0:
+                    dec[i] = piece[:ln]
+                else:
+                    level[i] = level[p] + 1
+                    by_level.setdefault(level[i], []).append(
+                        (s, i, p, ln, piece))
+            decoded.append(dec)
+        for lvl in sorted(by_level):
+            items = by_level[lvl]
+            parents = [decoded[s][p].ljust(len(piece), b"\0")
+                       for s, _, p, _, piece in items]
+            plain, _ = kops.xor_delta_pairs(
+                parents, [piece for *_, piece in items], device=device)
+            for (s, i, _, ln, _), pl in zip(items, plain):
+                decoded[s][i] = pl[:ln]
+        for sc, dec in zip(self.subchunks, decoded):
+            out.update(zip(sc.local_ids, dec))
+        return out
+
+    # ------------------------------------------------------------ serialization
+    def to_bytes(self) -> bytes:
+        if self._encoded is None:
+            parts = [_HEAD.pack(self.chunk_id, len(self.cks),
+                                len(self.subchunks)),
+                     self.cks.astype("<i8").tobytes()]
+            for sc in self.subchunks:
+                n = len(sc.local_ids)
+                parts.append(_SUB_HEAD.pack(n, len(sc.blob)))
+                parts.append(_sub_cols(n).pack(*sc.local_ids, *sc.parent_pos,
+                                               *sc.lengths))
+                parts.append(sc.blob)
+            self._encoded = b"".join(parts)
+        return self._encoded
+
+    @staticmethod
+    def from_bytes(buf: bytes) -> "StoredChunk":
+        cid, n_rec, n_sub = _HEAD.unpack_from(buf, 0)
+        off = 12
+        cks = np.frombuffer(buf, dtype="<i8", count=n_rec, offset=off).astype(np.int64)
+        off += 8 * n_rec
+        subs = []
+        raw = 0
+        for _ in range(n_sub):
+            n, blen = _SUB_HEAD.unpack_from(buf, off)
+            off += 8
+            cols = _sub_cols(n).unpack_from(buf, off)
+            off += 12 * n
+            lengths = cols[2 * n:]
+            raw += sum(lengths)
+            subs.append(SubChunkBlob(cols[:n], cols[n:2 * n], lengths,
+                                     buf[off:off + blen]))
+            off += blen
+        sc = StoredChunk(chunk_id=cid, cks=cks, subchunks=subs)
+        sc.stored_bytes = len(buf)
+        sc.raw_bytes = raw
+        return sc
+
+
+# -------------------------------------------------------------------- builder
+def build_chunk(graph: VersionGraph, record_ids: np.ndarray, chunk_id: int,
+                vidx_of: Dict[int, int], n_versions: int,
+                rec_versions_csr: Tuple[np.ndarray, np.ndarray],
+                subchunk_groups: Optional[List[np.ndarray]] = None,
+                compress_level: int = 6,
+                device=None) -> Tuple[StoredChunk, ChunkMap]:
+    """Assemble one physical chunk + its chunk map.
+
+    ``subchunk_groups``: optional list of record-id arrays (each a connected
+    same-primary-key group in sub-chunk tree order, §3.4); defaults to
+    singleton groups.  Records absent from any group get singletons.  All
+    of the chunk's (parent, child) delta pairs go through ONE
+    ``xor_delta_pairs`` call.
+    """
+    store = graph.store
+    cks = store.cks[record_ids]
+    has_payloads = store.has_payloads()
+
+    def payload(r: int) -> bytes:
+        return (store.payload(r) if has_payloads
+                else b"\0" * int(store.sizes[r]))
+
+    if subchunk_groups is None:
+        # singleton sub-chunks: each record stored raw, compressed alone
+        sizes = store.sizes[record_ids].tolist()
+        subs = [SubChunkBlob((i,), (-1,), (sz,),
+                             zlib.compress(payload(r), compress_level))
+                for i, (r, sz) in enumerate(zip(record_ids.tolist(), sizes))]
+        raw_total = sum(sizes)
+    else:
+        subs, raw_total = _grouped_subchunks(
+            graph, record_ids, subchunk_groups, payload, compress_level,
+            device)
+
+    chunk = StoredChunk(chunk_id=chunk_id, cks=cks, subchunks=subs,
+                        raw_bytes=raw_total)
+    chunk.stored_bytes = len(chunk.to_bytes())
+
+    return chunk, build_chunk_map(graph, record_ids, n_versions,
+                                  rec_versions_csr)
+
+
+def build_chunk_map(graph: VersionGraph, record_ids: np.ndarray,
+                    n_versions: int,
+                    rec_versions_csr: Tuple[np.ndarray, np.ndarray]
+                    ) -> ChunkMap:
+    """The chunk map alone: a bitmap over version indices per record, in
+    the chunk's stored record order (what a flush rewrites for old chunks
+    its versions touched — their payload blobs do not change)."""
+    W = (n_versions + 31) // 32
+    bitmap = np.zeros((len(record_ids), W), dtype=np.uint32)
+    indptr, vidxs = rec_versions_csr
+    record_ids = np.asarray(record_ids)
+    starts = indptr[record_ids]
+    cnt = indptr[record_ids + 1] - starts
+    rows = np.repeat(np.arange(len(record_ids)), cnt)
+    pos = (np.arange(int(cnt.sum())) - np.repeat(np.cumsum(cnt) - cnt, cnt)
+           + np.repeat(starts, cnt))
+    vs = vidxs[pos]
+    # bitwise_or.at: unbuffered — duplicate word indices must accumulate
+    np.bitwise_or.at(bitmap, (rows, vs // 32),
+                     np.uint32(1) << (vs % 32).astype(np.uint32))
+    return ChunkMap(cks=graph.store.cks[record_ids], bitmap=bitmap,
+                    n_versions=n_versions)
+
+
+def _grouped_subchunks(graph: VersionGraph, record_ids: np.ndarray,
+                       subchunk_groups: List[np.ndarray], payload,
+                       compress_level: int, device
+                       ) -> Tuple[List[SubChunkBlob], int]:
+    """Sub-chunks of connected same-key groups (§3.4): each member after the
+    first is XOR-delta'd against its in-group tree parent, all of the
+    chunk's delta pairs in ONE ``xor_delta_pairs`` call; records in no group
+    get singletons."""
+    store = graph.store
+    local_of = {int(r): i for i, r in enumerate(record_ids)}
+    seen = set()
+    groups: List[np.ndarray] = []
+    for grp in subchunk_groups:
+        groups.append(np.asarray(grp, dtype=np.int64))
+        seen.update(int(g) for g in grp)
+    for r in record_ids:
+        if int(r) not in seen:
+            groups.append(np.array([r], dtype=np.int64))
+
+    raw_total = 0
+    # pass 1: raw pieces, delta parent positions, and the delta pairs
+    staged: List[Tuple[Tuple[int, ...], List[int], List[int], List]] = []
+    pair_parents: List[bytes] = []
+    pair_children: List[bytes] = []
+    for grp, parents in zip(groups, _subchunk_parents(graph, groups)):
+        rids = grp.tolist()
+        local = tuple(local_of[r] for r in rids)
+        lens = store.sizes[grp].tolist()
+        payloads = [payload(r) for r in rids]
+        raw_total += sum(lens)
+        ppos = [-1] * len(rids)
+        pos_of = {r: i for i, r in enumerate(rids)}
+        pieces: List = []
+        for i, par in enumerate(parents):
+            if par is None or int(par) not in pos_of:
+                pieces.append(payloads[i])
+            else:
+                pi = pos_of[int(par)]
+                ppos[i] = pi
+                w = max(len(payloads[pi]), len(payloads[i]))
+                pieces.append(len(pair_parents))     # index of its delta
+                pair_parents.append(payloads[pi].ljust(w, b"\0"))
+                pair_children.append(payloads[i].ljust(w, b"\0"))
+        staged.append((local, ppos, lens, pieces))
+
+    # pass 2: fill in the deltas, compress each sub-chunk
+    deltas: List[bytes] = []
+    if pair_parents:
+        deltas, _ = kops.xor_delta_pairs(pair_parents, pair_children,
+                                         device=device)
+    subs = [SubChunkBlob(local, tuple(ppos), tuple(lens), zlib.compress(
+                b"".join(deltas[p] if isinstance(p, int) else p
+                         for p in pieces), level=compress_level))
+            for local, ppos, lens, pieces in staged]
+    return subs, raw_total
+
+
+def _subchunk_parents(graph: VersionGraph, groups: List[np.ndarray]):
+    """For each group, the delta-parent record id of each member (None = raw).
+    Members are same-primary-key records connected in the version tree; the
+    parent of record (K, Vc) is the record (K, Vp) live at the nearest proper
+    ancestor of Vc — within the group, that is the group member whose origin
+    version is the closest ancestor."""
+    origins = graph.store.origin_versions()
+    out = []
+    for grp in groups:
+        if len(grp) == 1:
+            out.append([None])
+            continue
+        grp_origin = {int(origins[r]): int(r) for r in grp}
+        parents: List[Optional[int]] = []
+        for r in grp:
+            v = int(origins[r])
+            p = graph.tree_parent(v)
+            found = None
+            while p is not None:
+                if p in grp_origin:
+                    found = grp_origin[p]
+                    break
+                p = graph.tree_parent(p)
+            parents.append(found)
+        out.append(parents)
+    return out

@@ -1,0 +1,135 @@
+"""NumPy-facing entry points for the kernels, with the contracts of the
+reference package's ``kernels/ops.py``.
+
+Each entry takes host arrays or bytes, moves them to ``device`` (``None``
+means the card; ``"cpu"`` runs the plain versions), runs the kernel wrapper
+once and brings the result back.  Words cross the numpy boundary as uint32
+and are held as int32 on the device (bit-identical for AND/OR/XOR/ANDNOT).
+The reference pads to the TPU's (8, 128) tiling; the hand-written kernels
+take any shape, so nothing here pads, and the results are equal.
+"""
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..device import DeviceLike, resolve_device
+from . import bitmap as _bitmap
+from . import deltaenc as _deltaenc
+
+# One xor_delta launch covers at most this many bytes of each input; a
+# larger batch of pairs is split into several launches.
+PAIRS_MAX_BYTES = 1 << 28
+
+
+def _to_device(words: np.ndarray, device: torch.device) -> torch.Tensor:
+    host = np.ascontiguousarray(words, dtype=np.uint32).view(np.int32)
+    if not host.flags.writeable:        # torch.from_numpy wants writable memory
+        host = host.copy()
+    return torch.from_numpy(host).to(device)
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy().view(np.uint32)
+
+
+# ---------------------------------------------------------------- xor delta
+def xor_delta_batch(parent: np.ndarray, child: np.ndarray, *,
+                    device: DeviceLike = None) -> Tuple[np.ndarray, np.ndarray]:
+    """(N, W) uint32 batches → (delta (N, W) uint32, changed_words (N,))."""
+    dev = resolve_device(device)
+    d, cnt = _deltaenc.xor_delta(_to_device(parent, dev),
+                                 _to_device(child, dev))
+    return _to_host(d), cnt.cpu().numpy()
+
+
+def xor_delta_pairs(parents: Sequence[bytes], children: Sequence[bytes], *,
+                    device: DeviceLike = None
+                    ) -> Tuple[List[bytes], np.ndarray]:
+    """Delta-encode (or decode) many payload pairs in one launch.
+
+    Pair ``i`` is ``(parents[i], children[i])`` of equal length; lengths may
+    differ between pairs.  Returns each pair's delta (of its own length) and
+    its count of nonzero 32-bit words — the same values one
+    :func:`xor_delta_bytes` call per pair gives.  Batches above
+    ``PAIRS_MAX_BYTES`` are split into several launches.
+    """
+    if len(parents) != len(children):
+        raise ValueError(f"{len(parents)} parents but {len(children)} children")
+    lens = np.fromiter((len(p) for p in parents), dtype=np.int64,
+                       count=len(parents))
+    for i, c in enumerate(children):
+        if len(c) != lens[i]:
+            raise ValueError(f"pair {i}: parent has {lens[i]} bytes, child "
+                             f"{len(c)}")
+    dev = resolve_device(device)
+    n = len(parents)
+    if n == 0:
+        return [], np.empty(0, dtype=np.int32)
+    wb = 4 * max(1, -(-int(lens.max()) // 4))     # row bytes, word-padded
+    rows = max(1, PAIRS_MAX_BYTES // wb)
+    out: List[bytes] = []
+    counts = np.empty(n, dtype=np.int32)
+    for lo in range(0, n, rows):
+        hi = min(n, lo + rows)
+        d, cnt = xor_delta_batch(_pack(parents[lo:hi], lens[lo:hi], wb),
+                                 _pack(children[lo:hi], lens[lo:hi], wb),
+                                 device=dev)
+        flat = d.tobytes()
+        out.extend(flat[j * wb:j * wb + int(lens[lo + j])]
+                   for j in range(hi - lo))
+        counts[lo:hi] = cnt
+    return out, counts
+
+
+def _pack(bufs: Sequence[bytes], lens: np.ndarray, wb: int) -> np.ndarray:
+    """Byte strings → zero-padded (N, wb/4) uint32 rows."""
+    if len(bufs) and (lens == wb).all():
+        flat = np.frombuffer(b"".join(bufs), dtype=np.uint8)
+    else:
+        flat = np.zeros(len(bufs) * wb, dtype=np.uint8)
+        for j, b in enumerate(bufs):
+            flat[j * wb:j * wb + len(b)] = np.frombuffer(b, dtype=np.uint8)
+    return flat.view(np.uint32).reshape(len(bufs), wb // 4)
+
+
+def xor_delta_bytes(parent: bytes, child: bytes, *,
+                    device: DeviceLike = None) -> Tuple[bytes, int]:
+    """Delta-encode one payload against its parent (decode is the same
+    call); the shorter input is zero-padded to the longer one's length."""
+    w = max(len(parent), len(child))
+    (d,), cnt = xor_delta_pairs([parent.ljust(w, b"\0")],
+                                [child.ljust(w, b"\0")], device=device)
+    return d, int(cnt[0])
+
+
+# ------------------------------------------------------------------- bitmap
+# Bitmap-plan launches since import.  The planner's one-launch-per-batch
+# contract is asserted against deltas of this counter.
+BITMAP_LAUNCHES = 0
+
+
+def bitmap_vm_batch(regs: np.ndarray, prog: np.ndarray, *,
+                    device: DeviceLike = None
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """Run one bitmap program over an (S, W) uint32 register file.
+
+    ``prog`` is (P, 4) int32 ``(opcode, dst, lhs, rhs)`` rows (opcodes
+    ``bitmap.OP_AND`` / ``OP_OR`` / ``OP_ANDNOT``); an empty program is
+    legal and passes the registers through.  Returns the final registers
+    ``(S, W)`` uint32 and per-row popcounts ``(S,)`` int32.  One call = one
+    launch, whatever the predicate-tree shape.
+    """
+    global BITMAP_LAUNCHES
+    BITMAP_LAUNCHES += 1
+    S, W = regs.shape
+    prog = np.asarray(prog, dtype=np.int32).reshape(-1, 4)
+    if len(prog) and (prog[:, 1:].min() < 0 or prog[:, 1:].max() >= S):
+        raise ValueError(f"program row operand out of range [0, {S})")
+    dev = resolve_device(device)
+    out, cnt = _bitmap.bitmap_vm(_to_device(regs, dev),
+                                 torch.from_numpy(np.ascontiguousarray(prog))
+                                 .to(dev))
+    return _to_host(out), cnt.cpu().numpy()

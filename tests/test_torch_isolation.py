@@ -1,0 +1,61 @@
+"""The port stands alone: it imports neither JAX nor the reference package,
+and it never runs on the CPU unless its caller asked for the CPU."""
+import os
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.core import RStore, ShardedDeviceKVS
+from repro_torch.kernels import ops
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+
+
+def _port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, prefix="repro_torch."))
+
+
+def test_port_imports_no_jax_and_no_reference():
+    mods = _port_modules()
+    assert "repro_torch.kernels.ops" in mods and "repro_torch.interop" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'repro' or m.startswith('repro.')]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   timeout=120)
+
+
+def test_chip_smoke_imports_no_jax_and_no_reference():
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        src = f.read()
+    for line in src.splitlines():
+        words = line.split()
+        if words[:1] in (["import"], ["from"]):
+            assert words[1].split(".")[0] not in ("jax", "repro"), line
+
+
+@pytest.mark.parametrize("entry", [
+    lambda: ShardedDeviceKVS(),
+    lambda: ops.bitmap_vm_batch(np.zeros((2, 2), np.uint32),
+                                np.zeros((0, 4), np.int32)),
+    lambda: ops.xor_delta_bytes(b"ab", b"cd"),
+    lambda: RStore(),
+])
+def test_default_device_is_the_card(entry):
+    """With no device given, an entry point asks for CUDA and raises here
+    instead of quietly running the plain versions on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default device works")
+    with pytest.raises(RuntimeError, match="CUDA device requested"):
+        entry()

@@ -1,0 +1,170 @@
+"""The port's kernel entry points against the reference package's.
+
+On this CPU the port's wrappers run their plain PyTorch versions (the CUDA
+kernels are held against those same plain versions on the card by
+``chip_smoke.py``).  Inputs come from numpy with a seed and go through both
+packages; the tolerance is exact equality, since these are integer kernels.
+The reference's ``bitmap_vm`` Pallas body does not trace on the installed
+JAX, so the VM is compared with ``ref.bitmap_vm_ref`` and
+``ops.bitmap_vm_batch``; ``xor_delta`` runs its Pallas body in interpret
+mode.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import deltaenc as rdelta
+from repro.kernels import ops as rops
+from repro.kernels import ref as rref
+
+from repro_torch.kernels import bitmap as tbitmap
+from repro_torch.kernels import deltaenc as tdelta
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+
+CPU = "cpu"
+
+
+def _t(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int32).copy())
+
+
+def _u(t: torch.Tensor) -> np.ndarray:
+    return t.numpy().view(np.uint32)
+
+
+def _random_prog(rng, S: int, P: int) -> np.ndarray:
+    prog = np.empty((P, 4), dtype=np.int32)
+    prog[:, 0] = rng.integers(0, 3, size=P)
+    prog[:, 1:] = rng.integers(0, S, size=(P, 3))
+    return prog
+
+
+# ---------------------------------------------------------------- xor delta
+@pytest.mark.parametrize("N,W", [(128, 128), (256, 256), (384, 512), (7, 3)])
+def test_xor_delta_matches_reference_kernel(N, W):
+    rng = np.random.default_rng(N + W)
+    p = rng.integers(0, 2**32, size=(N, W), dtype=np.uint32)
+    c = rng.integers(0, 2**32, size=(N, W), dtype=np.uint32)
+    c[::3] = p[::3]                                   # some all-zero rows
+    Np = -(-N // 128) * 128
+    pp = np.zeros((Np, W), np.uint32)
+    cp = np.zeros((Np, W), np.uint32)
+    pp[:N], cp[:N] = p, c
+    rd, rc = rdelta.xor_delta(jnp.asarray(pp), jnp.asarray(cp), interpret=True)
+    td, tc = tdelta.xor_delta(_t(p), _t(c))
+    np.testing.assert_array_equal(_u(td), np.asarray(rd)[:N])
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(rc)[:N])
+    od, oc = tops.xor_delta_batch(p, c, device=CPU)
+    np.testing.assert_array_equal(od, np.asarray(rd)[:N])
+    np.testing.assert_array_equal(oc, np.asarray(rc)[:N])
+
+
+@pytest.mark.parametrize("lp,lc", [(0, 0), (1, 7), (256, 256), (300, 13),
+                                   (17, 64)])
+def test_xor_delta_bytes_matches_reference(lp, lc):
+    rng = np.random.default_rng(lp * 31 + lc)
+    p = rng.integers(0, 256, lp, dtype=np.uint8).tobytes()
+    c = rng.integers(0, 256, lc, dtype=np.uint8).tobytes()
+    assert tops.xor_delta_bytes(p, c, device=CPU) == rops.xor_delta_bytes(p, c)
+    # decode(parent, encode(parent, child)) == child, zero-padded
+    w = max(lp, lc)
+    d, _ = tops.xor_delta_bytes(p, c, device=CPU)
+    back, _ = tops.xor_delta_bytes(p.ljust(w, b"\0"), d, device=CPU)
+    assert back == c.ljust(w, b"\0")
+
+
+def test_xor_delta_pairs_equals_per_pair_bytes(monkeypatch):
+    rng = np.random.default_rng(9)
+    lens = [256, 256, 0, 5, 64, 256, 131]
+    parents = [rng.integers(0, 256, n, dtype=np.uint8).tobytes() for n in lens]
+    children = [bytes(x ^ (i % 3 == 0) * 0xFF for x in p)
+                for i, p in enumerate(parents)]
+    want = [rops.xor_delta_bytes(p, c) for p, c in zip(parents, children)]
+    # one launch, and split into several by the memory bound
+    for cap in (tops.PAIRS_MAX_BYTES, 512):
+        monkeypatch.setattr(tops, "PAIRS_MAX_BYTES", cap)
+        d, cnt = tops.xor_delta_pairs(parents, children, device=CPU)
+        assert list(zip(d, cnt.tolist())) == want
+    with pytest.raises(ValueError, match="pair 1"):
+        tops.xor_delta_pairs([b"ab", b"abc"], [b"xy", b"x"], device=CPU)
+
+
+def test_xor_delta_identical_is_zero():
+    p = np.arange(256 * 64, dtype=np.uint32).reshape(256, 64)
+    d, cnt = tops.xor_delta_batch(p, p, device=CPU)
+    assert (d == 0).all() and (cnt == 0).all()
+
+
+# ---------------------------------------------------------------- bitmap VM
+@pytest.mark.parametrize("S,W,P", [(128, 128, 8), (128, 256, 32), (256, 128, 1),
+                                   (5, 7, 0), (40, 300, 2000)])
+def test_bitmap_vm_matches_reference(S, W, P):
+    rng = np.random.default_rng(S * 13 + W + P)
+    regs = rng.integers(0, 2**32, size=(S, W), dtype=np.uint32)
+    prog = _random_prog(rng, S, P)
+    bo, bc = rops.bitmap_vm_batch(regs, prog)
+    if P:   # the reference's plain version traces only a non-empty program
+        ro, rc = rref.bitmap_vm_ref(jnp.asarray(regs), jnp.asarray(prog))
+        np.testing.assert_array_equal(bo, np.asarray(ro))
+        np.testing.assert_array_equal(bc, np.asarray(rc))
+    to, tc = tbitmap.bitmap_vm(_t(regs), torch.from_numpy(prog))
+    np.testing.assert_array_equal(_u(to), bo)
+    np.testing.assert_array_equal(tc.numpy(), bc)
+    oo, oc = tops.bitmap_vm_batch(regs, prog, device=CPU)
+    np.testing.assert_array_equal(oo, bo)
+    np.testing.assert_array_equal(oc, bc)
+
+
+@pytest.mark.parametrize("op", [tbitmap.OP_AND, tbitmap.OP_OR,
+                                tbitmap.OP_ANDNOT])
+def test_bitmap_vm_each_op_exact(op):
+    rng = np.random.default_rng(40 + op)
+    regs = rng.integers(0, 2**32, size=(4, 9), dtype=np.uint32)
+    prog = np.array([[op, 3, 0, 1]], dtype=np.int32)
+    out, cnt = tops.bitmap_vm_batch(regs, prog, device=CPU)
+    a, b = regs[0], regs[1]
+    want = a & b if op == 0 else (a | b if op == 1 else a & ~b)
+    np.testing.assert_array_equal(out[3], want)
+    np.testing.assert_array_equal(out[:3], regs[:3])
+    np.testing.assert_array_equal(
+        cnt, [sum(bin(int(x)).count("1") for x in r) for r in out])
+
+
+def test_bitmap_vm_all_zero_bitmaps():
+    regs = np.zeros((6, 11), dtype=np.uint32)
+    prog = np.array([[tbitmap.OP_OR, 4, 0, 1],
+                     [tbitmap.OP_ANDNOT, 5, 2, 3]], dtype=np.int32)
+    out, cnt = tops.bitmap_vm_batch(regs, prog, device=CPU)
+    assert (out == 0).all() and (cnt == 0).all()
+
+
+def test_bitmap_vm_operand_out_of_range_raises():
+    regs = np.zeros((4, 4), dtype=np.uint32)
+    with pytest.raises(ValueError, match="out of range"):
+        tops.bitmap_vm_batch(regs, np.array([[0, 4, 0, 1]], dtype=np.int32),
+                             device=CPU)
+    with pytest.raises(ValueError, match="out of range"):
+        tops.bitmap_vm_batch(regs, np.array([[0, 0, -1, 1]], dtype=np.int32),
+                             device=CPU)
+
+
+def test_bitmap_vm_counts_one_launch_per_call():
+    regs = np.ones((3, 3), dtype=np.uint32)
+    before = tops.BITMAP_LAUNCHES
+    tops.bitmap_vm_batch(regs, np.zeros((0, 4), dtype=np.int32), device=CPU)
+    tops.bitmap_vm_batch(regs, np.array([[1, 2, 0, 1]] * 5, np.int32),
+                         device=CPU)
+    assert tops.BITMAP_LAUNCHES - before == 2
+    # the CUDA kernels' own counters move only where a kernel launched
+    assert tbitmap.LAUNCHES == tdelta.LAUNCHES == 0
+
+
+def test_popcount_swar_exact():
+    v = np.array([0, 1, 0xFFFFFFFF, 0x80000000, 0x55555555, 0x12345678],
+                 dtype=np.uint32)
+    got = tref.popcount32_ref(_t(v)).numpy()
+    np.testing.assert_array_equal(got, [bin(int(x)).count("1") for x in v])
+    np.testing.assert_array_equal(
+        got, np.asarray(rref.popcount32_ref(jnp.asarray(v))))

@@ -13,15 +13,26 @@ then:
    sessions; four waves of 64 mixed queries come out through
    ``StoreQueryEngine.serve``.  Every answer is checked against a plain dict
    oracle kept while the data was generated.
-2. k=3 main path (§3.4 sub-chunk compression): 2^16 base records, 32
+2. sh main path, the SHINGLE offline layout (§3.1):
+   ``RStoreConfig(algorithm="shingle")`` (its online batch bound above the
+   chain's version count) over four device tables as in k1,
+   the same chain (and oracle) staged through two ``rs.writer`` sessions
+   without flushing, then ONE ``rs.build()``: the record→version CSR, the
+   min-hash kernel over every record, lexsort and packing, chunk staging and
+   one multiput.  One checked 64-query wave, then the wave's record and
+   range leaves as one ``Projections.candidates_batch`` (one pairwise
+   ``and_popcount`` launch) and one ``candidates_range`` (the broadcast
+   shape), each candidate set checked against a host intersection of the
+   posting lists.
+3. k=3 main path (§3.4 sub-chunk compression): 2^16 base records, 32
    versions, bounded payload changes (p_d = 0.1), ``rs.build()`` and one
    checked 64-query wave.
-3. Kernel phases: each kernel against its plain PyTorch version on the card,
+4. Kernel phases: each kernel against its plain PyTorch version on the card,
    bit-exact, at the shapes the main paths gave it and at the shapes named
    below, with CUDA-event times beside the bound.
 
-Each kernel wrapper counts its own launches; the counts are zeroed just
-before each main path and read just after it.  Every phase raises on
+Each kernel wrapper counts its own launches; all four counts are zeroed
+just before each main path and read just after it.  Every phase raises on
 failure.  The last line is ``{"ok": true, "device": {...}}``; the line before
 it the card's name and power limit; the one before that the per-kernel JSON.
 Exits non-zero, printing no result, when no card is visible.
@@ -29,12 +40,14 @@ Exits non-zero, printing no result, when no card is visible.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import resource
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 from typing import Callable, Dict, List, Tuple
 
 import numpy as np
@@ -231,6 +244,7 @@ class Timers:
     def __init__(self, torch) -> None:
         self.torch = torch
         self.t: Dict[str, float] = {}
+        self.calls: Dict[str, List[float]] = {}     # host seconds per call
         self._undo: List[Callable[[], None]] = []
 
     def wrap(self, owner, name: str, label: str, device_time: bool = False):
@@ -244,7 +258,9 @@ class Timers:
                 e0.record()
             t0 = time.perf_counter()
             out = fn(*a, **k)
-            self.t[label] = self.t.get(label, 0.0) + time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            self.t[label] = self.t.get(label, 0.0) + dt
+            self.calls.setdefault(label, []).append(dt)
             if device_time:
                 e1.record()
                 e1.synchronize()
@@ -263,6 +279,7 @@ class Timers:
 
     def reset(self) -> None:
         self.t = {}
+        self.calls = {}
 
     def close(self) -> None:
         for u in reversed(self._undo):
@@ -332,8 +349,20 @@ def device_busy(torch, fn):
     return busy_us / 1e6, wall, top
 
 
+def zero_launches(K) -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    K.bitmap.LAUNCHES = K.bitmap.AND_LAUNCHES = 0
+    K.delta.LAUNCHES = K.minhash.LAUNCHES = 0
+
+
+def read_launches(K) -> Dict[str, int]:
+    return {"bitmap_vm": K.bitmap.LAUNCHES, "xor_delta": K.delta.LAUNCHES,
+            "and_popcount": K.bitmap.AND_LAUNCHES,
+            "minhash": K.minhash.LAUNCHES}
+
+
 # ------------------------------------------------------------------- phases
-def main_path_k1(args, torch, dev, T, eng_mod, kops, kbitmap, kdelta):
+def main_path_k1(args, torch, dev, T, eng_mod, K):
     chain = Chain(args.seed, 1 << args.base_log2, args.versions)
     log(f"[k1] chain: {1 << args.base_log2} base records, {args.versions} "
         f"versions, {chain.n_records} stored records "
@@ -357,6 +386,7 @@ def main_path_k1(args, torch, dev, T, eng_mod, kops, kbitmap, kdelta):
         f"{kvs.total_stored_bytes()}; torch.cuda.memory_allocated "
         f"{torch.cuda.memory_allocated() - mem0} bytes above the start")
 
+    kops, kbitmap = K.ops, K.bitmap
     engine = eng_mod.StoreQueryEngine(rs)
     timers = Timers(torch)
     from repro_torch.core import api as api_mod
@@ -379,7 +409,7 @@ def main_path_k1(args, torch, dev, T, eng_mod, kops, kbitmap, kdelta):
             qs, wants = chain.wave(T.Q, vid, args.seed * 100 + w)
             waves.append((qs, wants))
         engine.snapshot()                   # pin once, outside the timing
-        kbitmap.LAUNCHES = kdelta.LAUNCHES = 0
+        zero_launches(K)
         l0 = kops.BITMAP_LAUNCHES
         results = []
         for w, (qs, wants) in enumerate(waves):
@@ -393,9 +423,8 @@ def main_path_k1(args, torch, dev, T, eng_mod, kops, kbitmap, kdelta):
             results.append((batch, dict(timers.t), dt,
                             kvs.stats.n_queries - q0,
                             kvs.stats.bytes_fetched - b0))
-        launches = {"bitmap_vm": kbitmap.LAUNCHES,
-                    "xor_delta": kdelta.LAUNCHES,
-                    "BITMAP_LAUNCHES": kops.BITMAP_LAUNCHES - l0}
+        launches = dict(read_launches(K),
+                        BITMAP_LAUNCHES=kops.BITMAP_LAUNCHES - l0)
     finally:
         kbitmap.bitmap_vm = orig_vm
         timers.close()
@@ -429,10 +458,10 @@ def main_path_k1(args, torch, dev, T, eng_mod, kops, kbitmap, kdelta):
                              f"{len(waves)} waves")
     log(f"[k1] launches during the waves: {json.dumps(launches)}")
     log("[k1] every answer equals the dict oracle")
-    return launches, bitmap_inputs
+    return launches, bitmap_inputs, chain
 
 
-def main_path_k3(args, torch, dev, T, kops, kbitmap, kdelta):
+def main_path_k3(args, torch, dev, T, K):
     chain = Chain(args.seed + 1, 1 << args.k3_base_log2, args.k3_versions,
                   p_d=0.1)
     log(f"[k3] chain: {1 << args.k3_base_log2} base records, "
@@ -441,6 +470,7 @@ def main_path_k3(args, torch, dev, T, kops, kbitmap, kdelta):
     kvs = T.ShardedKVS([T.ShardedDeviceKVS(slot_bytes=SLOT_BYTES, device=dev)
                         for _ in range(4)])
     rs = T.RStore(T.RStoreConfig(k=3), kvs, device=dev)
+    kdelta = K.delta
     delta_inputs = []
     orig = kdelta.xor_delta
 
@@ -452,7 +482,7 @@ def main_path_k3(args, torch, dev, T, kops, kbitmap, kdelta):
         t0 = time.perf_counter()
         ingest(rs, chain, flush_on_close=False)
         stage_s = time.perf_counter() - t0
-        kbitmap.LAUNCHES = kdelta.LAUNCHES = 0
+        zero_launches(K)
         t0 = time.perf_counter()
         rs.build()
         torch.cuda.synchronize()
@@ -464,8 +494,7 @@ def main_path_k3(args, torch, dev, T, kops, kbitmap, kdelta):
         batch = rs.snapshot().execute(qs)
         torch.cuda.synchronize()
         wave_s = time.perf_counter() - t0
-        launches = {"bitmap_vm": kbitmap.LAUNCHES,
-                    "xor_delta": kdelta.LAUNCHES}
+        launches = read_launches(K)
     finally:
         kdelta.xor_delta = orig
     check_wave(batch, wants, "k3 wave")
@@ -485,44 +514,218 @@ def main_path_k3(args, torch, dev, T, kops, kbitmap, kdelta):
     return launches
 
 
-def kernel_phases(torch, dev, kbitmap, kdelta, kref, bitmap_inputs, launches):
-    """Each kernel against its plain version, bit-exact, then timed.  ``ms``
-    is the kernel alone: CUDA events around back-to-back launches of the C
-    entry point on preallocated buffers, so the Python wrapper's own cost
-    (allocation, checks; ``wrapper_ms`` in the log) stays out of it.  Those
-    launches find their inputs in L2, as the main path's do: it copies them
-    to the card just before each launch.  ``cold_ms`` times single launches
-    after L2 has been overwritten."""
-    from repro_torch.kernels import _build
-    lib = _build.library()
-    stream = torch.cuda.current_stream().cuda_stream
-    gen = torch.Generator(device="cpu").manual_seed(1234)
+def query_leaves(proj, q) -> List[Tuple[int, List[int]]]:
+    """``(vid, pks)`` of every record, records and range leaf of ``q`` (a
+    range's keys through the projections' sorted key array)."""
+    if q.kind == "record":
+        return [(q.vid, [q.pk])]
+    if q.kind == "records":
+        return [(q.vid, list(q.pks))]
+    if q.kind == "range":
+        return [(q.vid, proj.keys_in_range(q.key_lo, q.key_hi).tolist())]
+    return [it for c in (q.children or ()) for it in query_leaves(proj, c)]
 
-    def launch_ms(entry, *args) -> Tuple[float, float]:
+
+def host_candidates(proj, vid: int, pks) -> np.ndarray:
+    """The candidate chunks of ``pks`` in ``vid`` without any bitmap: the
+    union of the keys' posting lists intersected with the version's."""
+    post = [proj.key_chunks[pk] for pk in pks if pk in proj.key_chunks]
+    if not post:
+        return np.empty(0, np.int64)
+    return np.intersect1d(np.unique(np.concatenate(post)),
+                          proj.version_chunks[vid])
+
+
+def main_path_sh(args, torch, dev, T, eng_mod, K, chain: Chain):
+    """The SHINGLE offline layout over k1's chain: staged writes, one full
+    ``build()``, one checked wave and the index-AND candidates API."""
+    from repro_torch.core import partition
+    from repro_torch.core.partition import base as part_base
+    log(f"[sh] chain: k1's ({chain.n_records} stored records), "
+        f"RStoreConfig(algorithm='shingle', batch_size={chain.n_versions + 1})")
+    kvs = T.ShardedKVS([T.ShardedDeviceKVS(slot_bytes=SLOT_BYTES, device=dev)
+                        for _ in range(4)])
+    # The online batch bound is set above the chain's version count: at the
+    # default 64, which equals the chain's 64 versions, the second writer's
+    # close would flush all of them online (a full k1-style group flush)
+    # just before build() lays them out again.  It bounds online flushes
+    # only; the offline layout and every answer are the same.
+    rs = T.RStore(T.RStoreConfig(algorithm="shingle",
+                                 batch_size=chain.n_versions + 1),
+                  kvs, device=dev)
+    timers = Timers(torch)
+    mh_inputs, ap_inputs = [], []
+    orig_mh, orig_ap = K.minhash.minhash, K.bitmap.and_popcount
+
+    def recording_mh(indptr, col, a, b):
+        mh_inputs.append((indptr, col, a, b))
+        return orig_mh(indptr, col, a, b)
+
+    def recording_ap(bms, row):
+        ap_inputs.append((bms, row))
+        return orig_ap(bms, row)
+    K.minhash.minhash, K.bitmap.and_popcount = recording_mh, recording_ap
+    timers.wrap(T.VersionGraph, "record_version_index_csr", "csr")
+    timers.wrap(partition.ShinglePartitioner, "partition", "partition")
+    timers.wrap(K.ops, "minhash_csr", "minhash_csr")
+    timers.wrap(K.minhash, "minhash", "minhash", device_time=True)
+    timers.wrap(part_base.ChunkPacker, "place_many", "place_many")
+    timers.wrap(T.RStore, "_stage_chunk_writes", "stage")
+    timers.wrap(kvs, "multiput", "multiput")
+    timers.wrap(K.bitmap, "and_popcount", "and_popcount", device_time=True)
+    try:
+        zero_launches(K)
+        t0 = time.perf_counter()
+        ingest(rs, chain, flush_on_close=False)
+        stage_s = time.perf_counter() - t0
+        if rs.n_chunks or kvs.stats.n_put_queries:
+            raise AssertionError("sh staging flushed before build()")
+        timers.reset()
+        t0 = time.perf_counter()
+        rs.build()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        bt = dict(timers.t)
+        csr_calls = list(timers.calls.get("csr", []))
+        vid = chain.targets[-1]
+        qs, wants = chain.wave(T.Q, vid, args.seed * 100 + 50)
+        engine = eng_mod.StoreQueryEngine(rs)
+        engine.snapshot()                   # pin once, outside the timing
+        q0, b0 = kvs.stats.n_queries, kvs.stats.bytes_fetched
+        t0 = time.perf_counter()
+        batch = engine.serve(qs)
+        torch.cuda.synchronize()
+        wave_s = time.perf_counter() - t0
+        rts, nbytes = kvs.stats.n_queries - q0, kvs.stats.bytes_fetched - b0
+        proj = rs.proj
+        items = [it for q in qs for it in query_leaves(proj, q)]
+        timers.reset()
+        t0 = time.perf_counter()
+        cands = proj.candidates_batch(items, device=dev)
+        torch.cuda.synchronize()
+        cand_s = time.perf_counter() - t0
+        cand_dev = timers.t.get("and_popcount_device", 0.0)
+        lo = int(chain.rng.integers(0, chain.max_key))
+        rng_cands = proj.candidates_range(vid, lo, lo + 255, device=dev)
+        launches = read_launches(K)
+    finally:
+        timers.close()
+        K.minhash.minhash, K.bitmap.and_popcount = orig_mh, orig_ap
+    if len(ap_inputs) != 2:
+        raise AssertionError(f"the sh path made {len(ap_inputs)} "
+                             "and_popcount calls, not 2 (candidates_batch, "
+                             "candidates_range)")
+    check_wave(batch, wants, "sh wave")
+    if rts > 4:
+        raise AssertionError(f"sh wave: {rts} read round trips > 4")
+    for i, ((v, pks), got) in enumerate(zip(items, cands)):
+        if not np.array_equal(got, host_candidates(proj, v, pks)):
+            raise AssertionError(f"sh candidates_batch item {i} disagrees "
+                                 "with the host intersection")
+    if not np.array_equal(rng_cands, host_candidates(
+            proj, vid, proj.keys_in_range(lo, lo + 255).tolist())):
+        raise AssertionError("sh candidates_range disagrees with the host "
+                             "intersection")
+    part_s = bt.get("partition", 0.0)
+    csr_in_part = csr_calls[0] if csr_calls else 0.0
+    mh_s = bt.get("minhash_csr", 0.0)
+    sort_pack = part_s - csr_in_part - mh_s
+    stage_put = bt.get("stage", 0.0) + bt.get("multiput", 0.0)
+    other = build_s - part_s - sum(csr_calls[1:]) - stage_put
+    log(f"[sh] staging {stage_s:.3f} s (two writer sessions, no flush)")
+    log(f"[sh] build(): {build_s:.3f} s; record->version CSR "
+        f"{' + '.join(f'{c:.3f}' for c in csr_calls)} s ({len(csr_calls)} "
+        f"calls: partitioner, chunk maps); minhash entry {mh_s:.3f} s incl. "
+        f"copies (kernel device time "
+        f"{bt.get('minhash_device', 0.0) * 1e3:.3f} ms); lexsort + packing "
+        f"{sort_pack:.3f} s (ChunkPacker.place_many "
+        f"{bt.get('place_many', 0.0):.3f} s); chunk staging "
+        f"{bt.get('stage', 0.0):.3f} s + multiput "
+        f"{bt.get('multiput', 0.0):.3f} s; other (projections) {other:.3f} s")
+    ip, col, a, _ = mh_inputs[0]
+    log(f"[sh] {rs.n_chunks} chunks; minhash input R={ip.numel() - 1} "
+        f"nnz={col.numel()} L={a.numel()}; write round trips "
+        f"{kvs.stats.n_put_queries}")
+    log(f"[sh] wave @v{vid}: {wave_s:.4f} s, {len(qs) / wave_s:.1f} "
+        f"queries/s, {rts} read round trips, {nbytes} bytes gathered, "
+        f"{batch.batch.records_returned} records")
+    bms, row = ap_inputs[0]
+    log(f"[sh] candidates_batch: {len(items)} record/range leaves -> one "
+        f"and_popcount {tuple(bms.shape)} & {tuple(row.shape)}, {cand_s:.4f} s "
+        f"host, kernel device {cand_dev * 1e3:.4f} ms; candidates_range "
+        f"-> {tuple(ap_inputs[1][0].shape)} & {tuple(ap_inputs[1][1].shape)}")
+    if launches["minhash"] <= 0 or launches["and_popcount"] <= 0:
+        raise AssertionError(f"the sh path launched no minhash or no "
+                             f"and_popcount kernel: {launches}")
+    log(f"[sh] launches during staging + build + wave + candidates: "
+        f"{json.dumps(launches)}")
+    log("[sh] every answer equals the dict oracle; every candidate set "
+        "equals the host intersection")
+    return launches, mh_inputs[0], dict(
+        zip(("candidates_batch", "candidates_range"), ap_inputs))
+
+
+class Bench:
+    """Shared tools of the kernel phases: seeded random words on the card,
+    exact comparison, CUDA-event times of a C entry point, and the bound."""
+
+    def __init__(self, torch, dev) -> None:
+        from repro_torch.kernels import _build
+        self.torch, self.dev, self._build = torch, dev, _build
+        self.lib = _build.library()
+        self.stream = torch.cuda.current_stream().cuda_stream
+        self.gen = torch.Generator(device="cpu").manual_seed(1234)
+
+    def words(self, *shape):
+        return self.torch.randint(-2**31, 2**31 - 1, shape, generator=self.gen,
+                                  dtype=self.torch.int32).to(self.dev)
+
+    def err(self, a, b) -> int:
+        """Largest absolute difference; raises if the shapes differ."""
+        if tuple(a.shape) != tuple(b.shape):
+            raise AssertionError(f"shapes {tuple(a.shape)} != "
+                                 f"{tuple(b.shape)}")
+        t = self.torch
+        return int((a.to(t.int64) - b.to(t.int64)).abs().max()) \
+            if a.numel() else 0
+
+    def launch_ms(self, entry, *args) -> Tuple[float, float]:
         """(warm ms over 200 back-to-back launches, cold-L2 ms)."""
-        rc = entry(*args, stream)
-        _build.check(rc, entry.__name__)
-        return (cuda_ms(torch, lambda: entry(*args, stream), iters=200),
-                cold_ms(torch, lambda: entry(*args, stream)))
+        rc = entry(*args, self.stream)
+        self._build.check(rc, entry.__name__)
+        return (cuda_ms(self.torch, lambda: entry(*args, self.stream),
+                        iters=200),
+                cold_ms(self.torch, lambda: entry(*args, self.stream)))
 
-    def rand_words(*shape):
-        return torch.randint(-2**31, 2**31 - 1, shape, generator=gen,
-                             dtype=torch.int32).to(dev)
+    @staticmethod
+    def bound(nbytes: float, nops: float) -> Tuple[float, str]:
+        b_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        b_ops = nops / PEAK_WORD_OPS_PER_S * 1e3
+        return max(b_bytes, b_ops), ("bytes" if b_bytes >= b_ops
+                                     else "operations")
+
+
+def vm_and_xor_phases(B: Bench, K, bitmap_inputs, launches):
+    """bitmap_vm and xor_delta against their plain versions, then timed.
+    ``ms`` is the kernel alone: CUDA events around back-to-back launches of
+    the C entry point on preallocated buffers, so the Python wrapper's own
+    cost (allocation, checks; ``wrapper_ms`` in the log) stays out of it.
+    Those launches find their inputs in L2, as the main path's do: it copies
+    them to the card just before each launch.  ``cold_ms`` times single
+    launches after L2 has been overwritten."""
+    torch, dev = B.torch, B.dev
+    kbitmap, kdelta, kref = K.bitmap, K.delta, K.ref
 
     def rand_prog(S, P):
         prog = torch.empty((P, 4), dtype=torch.int32)
-        prog[:, 0] = torch.randint(0, 3, (P,), generator=gen)
-        prog[:, 1:] = torch.randint(0, S, (P, 3), generator=gen)
+        prog[:, 0] = torch.randint(0, 3, (P,), generator=B.gen)
+        prog[:, 1:] = torch.randint(0, S, (P, 3), generator=B.gen)
         return prog.to(dev)
-
-    def exact(a, b) -> int:
-        return int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) \
-            if a.numel() else 0
 
     # ---- bitmap_vm: the waves' own programs, then the named shapes
     cases = [("wave", r, p) for r, p in bitmap_inputs]
-    cases.append(("random", rand_words(256, 4096), rand_prog(256, 128)))
-    cases.append(("P=0", rand_words(256, 4096), rand_prog(256, 0)))
+    cases.append(("random", B.words(256, 4096), rand_prog(256, 128)))
+    cases.append(("P=0", B.words(256, 4096), rand_prog(256, 0)))
     cases.append(("all-zero", torch.zeros((64, 1024), dtype=torch.int32,
                                           device=dev), rand_prog(64, 64)))
     err = 0
@@ -530,7 +733,7 @@ def kernel_phases(torch, dev, kbitmap, kdelta, kref, bitmap_inputs, launches):
         o1, c1 = kbitmap.bitmap_vm(regs, prog)
         o2, c2 = kref.bitmap_vm_ref(regs, prog)
         torch.cuda.synchronize()
-        e = max(exact(o1, o2), exact(c1, c2))
+        e = max(B.err(o1, o2), B.err(c1, c2))
         if e:
             raise AssertionError(f"bitmap_vm {name} {tuple(regs.shape)} "
                                  f"P={prog.shape[0]} disagrees: {e}")
@@ -545,17 +748,14 @@ def kernel_phases(torch, dev, kbitmap, kdelta, kref, bitmap_inputs, launches):
         #                                    popcount + sum per word
         out = torch.empty_like(regs)
         cnt = torch.zeros(S, dtype=torch.int32, device=dev)
-        ms, cold = launch_ms(lib.bitmap_vm_launch, regs.data_ptr(),
-                             prog.data_ptr(), out.data_ptr(), cnt.data_ptr(),
-                             S, W, P)
+        ms, cold = B.launch_ms(B.lib.bitmap_vm_launch, regs.data_ptr(),
+                               prog.data_ptr(), out.data_ptr(),
+                               cnt.data_ptr(), S, W, P)
         wrapper = cuda_ms(torch, lambda: kbitmap.bitmap_vm(regs, prog))
         plain = cuda_ms(torch, lambda: kref.bitmap_vm_ref(regs, prog), 5)
-        b_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        b_ops = nops / PEAK_WORD_OPS_PER_S * 1e3
+        bound, by = B.bound(nbytes, nops)
         return dict(S=S, W=W, P=P, ms=ms, cold_ms=cold, wrapper_ms=wrapper,
-                    plain_ms=plain,
-                    bound_ms=max(b_bytes, b_ops),
-                    bound_by="bytes" if b_bytes >= b_ops else "operations")
+                    plain_ms=plain, bound_ms=bound, bound_by=by)
 
     for name, regs, prog in cases:
         r = vm_row(regs, prog)
@@ -581,15 +781,15 @@ def kernel_phases(torch, dev, kbitmap, kdelta, kref, bitmap_inputs, launches):
     # vector branch at (N, 64) words = 256-byte records
     err = 0
     N, W = 4096, RECORD // 4
-    flat_p, flat_c = rand_words(N * W + 1), rand_words(N * W + 1)
+    flat_p, flat_c = B.words(N * W + 1), B.words(N * W + 1)
     for name, p, c in (
-            ("W=63", rand_words(N, W - 1), rand_words(N, W - 1)),
+            ("W=63", B.words(N, W - 1), B.words(N, W - 1)),
             ("unaligned", flat_p[1:].view(N, W), flat_c[1:].view(N, W))):
         c[::2] = p[::2]
         d1, n1 = kdelta.xor_delta(p, c)
         d2, n2 = kref.xor_delta_ref(p, c)
         torch.cuda.synchronize()
-        e = max(exact(d1, d2), exact(n1, n2))
+        e = max(B.err(d1, d2), B.err(n1, n2))
         if e:
             raise AssertionError(f"xor_delta scalar branch {name} "
                                  f"{tuple(p.shape)} disagrees: {e}")
@@ -597,27 +797,26 @@ def kernel_phases(torch, dev, kbitmap, kdelta, kref, bitmap_inputs, launches):
             "bit-exact")
     xrows = {}
     for N in (4096, 65536):
-        p, c = rand_words(N, RECORD // 4), rand_words(N, RECORD // 4)
-        c[::2] = p[::2] ^ (rand_words(N // 2, RECORD // 4) & 0x0F)
+        p, c = B.words(N, RECORD // 4), B.words(N, RECORD // 4)
+        c[::2] = p[::2] ^ (B.words(N // 2, RECORD // 4) & 0x0F)
         d1, n1 = kdelta.xor_delta(p, c)
         d2, n2 = kref.xor_delta_ref(p, c)
         torch.cuda.synchronize()
-        e = max(exact(d1, d2), exact(n1, n2))
+        e = max(B.err(d1, d2), B.err(n1, n2))
         if e:
             raise AssertionError(f"xor_delta N={N} disagrees: {e}")
         d, n = torch.empty_like(p), torch.empty(N, dtype=torch.int32,
                                                  device=dev)
-        ms, cold = launch_ms(lib.xor_delta_launch, p.data_ptr(), c.data_ptr(),
-                             d.data_ptr(), n.data_ptr(), N, RECORD // 4, 1)
+        ms, cold = B.launch_ms(B.lib.xor_delta_launch, p.data_ptr(),
+                               c.data_ptr(), d.data_ptr(), n.data_ptr(), N,
+                               RECORD // 4, 1)
         wrapper = cuda_ms(torch, lambda: kdelta.xor_delta(p, c))
         plain = cuda_ms(torch, lambda: kref.xor_delta_ref(p, c))
         lib_ms = cuda_ms(torch, lambda: torch.bitwise_xor(p, c))
-        nbytes = 3 * N * (RECORD // 4) * 4 + 4 * N
-        b_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        b_ops = 2 * N * (RECORD // 4) / PEAK_WORD_OPS_PER_S * 1e3
+        bound, by = B.bound(3 * N * (RECORD // 4) * 4 + 4 * N,
+                            2 * N * (RECORD // 4))
         xrows[N] = dict(ms=ms, cold_ms=cold, plain_ms=plain,
-                        library_ms=lib_ms, bound_ms=max(b_bytes, b_ops),
-                        bound_by="bytes" if b_bytes >= b_ops else "operations")
+                        library_ms=lib_ms, bound_ms=bound, bound_by=by)
         log(f"[kernels] xor_delta N={N} W={RECORD // 4}: {ms:.5f} ms (cold L2 "
             f"{cold:.5f} ms, wrapper "
             f"{wrapper:.5f} ms, plain {plain:.5f} ms, torch.bitwise_xor "
@@ -635,6 +834,134 @@ def kernel_phases(torch, dev, kbitmap, kdelta, kref, bitmap_inputs, launches):
           "bound_by": x["bound_by"], "library_ms": x["library_ms"],
           "shape": [65536, RECORD // 4]}
     return [vm, xd]
+
+
+def minhash_phase(B: Bench, K, path_inputs, launches):
+    """minhash against its plain version, bit-exact: the sh path's own CSR,
+    empty rows, R = 0, entries whose hashes wrap mod 2^32 and mins >= 2^31
+    (a signed min would pick another word), -1 entries, and L = 40 (five
+    hash groups of 8, the last one full); then timed at the path's shape."""
+    torch, dev = B.torch, B.dev
+    M32 = 0xFFFFFFFF
+
+    def params(a, b):
+        def i32(x):
+            x = np.asarray(x, dtype=np.uint32).view(np.int32)
+            return torch.from_numpy(x.copy()).to(dev)
+        return i32(a), i32(b)
+
+    def csr(degrees, lo, hi):
+        deg = torch.as_tensor(degrees, dtype=torch.int64)
+        ptr = torch.zeros(len(deg) + 1, dtype=torch.int64)
+        ptr[1:] = torch.cumsum(deg, 0)
+        col = torch.randint(lo, hi, (int(ptr[-1]),), generator=B.gen,
+                            dtype=torch.int64).to(torch.int32)
+        return ptr.to(dev), col.to(dev)
+
+    fam8 = params(*K.ops.hash_family(8, 0))
+    deg = torch.randint(0, 40, (65536,), generator=B.gen)
+    p_wrap, c_wrap = csr(torch.full((4096,), 16), 2**30, 2**31 - 1)
+    p_pad, c_pad = csr(torch.full((4096,), 8), 0, 64)
+    c_pad[::3] = -1
+    cases = [("path", *path_inputs),
+             ("empty rows", *csr([0, 3, 0, 0, 5, 0], 0, 100), *fam8),
+             ("R=0", torch.zeros(1, dtype=torch.int64, device=dev),
+              torch.zeros(0, dtype=torch.int32, device=dev), *fam8),
+             ("wrap, mins >= 2^31", p_wrap, c_wrap,
+              *params([1, 3, 0x9E3779B1], [2**31 + 5, 2**32 - 100, 2**31])),
+             ("-1 entries", p_pad, c_pad, *fam8),
+             ("L=40", *csr(deg, 0, 64), *params(*K.ops.hash_family(40, 2)))]
+    err = 0
+    for name, ptr, col, a, b in cases:
+        o1 = K.minhash.minhash(ptr, col, a, b)
+        o2 = K.ref.minhash_csr_ref(ptr, col, a, b)
+        torch.cuda.synchronize()
+        e = B.err(o1, o2)
+        if e:
+            raise AssertionError(f"minhash {name} disagrees: {e}")
+        if name.startswith("wrap"):
+            lane0 = o2[0].to(torch.int64) & M32
+            if not bool((lane0 >= 2**31).all()):
+                raise AssertionError("minhash wrap case: a = 1 mins < 2^31")
+        log(f"[kernels] minhash {name}: R={ptr.numel() - 1} "
+            f"nnz={col.numel()} L={a.numel()}, bit-exact")
+        err = max(err, e)
+    ptr, col, a, b = path_inputs
+    R, L, nnz = ptr.numel() - 1, a.numel(), col.numel()
+    out = torch.empty((L, R), dtype=torch.int32, device=dev)
+    ms, cold = B.launch_ms(B.lib.minhash_launch, ptr.data_ptr(),
+                           col.data_ptr(), a.data_ptr(), b.data_ptr(),
+                           out.data_ptr(), R, L)
+    wrapper = cuda_ms(torch, lambda: K.minhash.minhash(ptr, col, a, b))
+    plain = cuda_ms(torch, lambda: K.ref.minhash_csr_ref(ptr, col, a, b), 5)
+    bound, by = B.bound(8 * (R + 1) + 4 * nnz + 4 * L * R, 3 * L * nnz)
+    log(f"[kernels] minhash path R={R} nnz={nnz} L={L}: {ms:.5f} ms (cold L2 "
+        f"{cold:.5f} ms, wrapper {wrapper:.5f} ms, plain {plain:.4f} ms, "
+        f"bound {bound:.6f} ms by {by}; no single PyTorch call)")
+    return {"name": "minhash", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/minhash.cu",
+            "replaces": "src/repro/kernels/minhash.py:59",
+            "launches": launches["sh"]["minhash"], "max_abs_err": err,
+            "ms": ms, "cold_ms": cold, "plain_ms": plain, "bound_ms": bound,
+            "bound_by": by, "library_ms": None, "shape": [R, nnz, L]}
+
+
+def and_popcount_phase(B: Bench, K, path_inputs, launches):
+    """and_popcount against its plain version, bit-exact: the sh path's own
+    pairwise (candidates_batch) and broadcast (candidates_range) inputs, N = 1, (65536, 512) pairwise and
+    broadcast, and the scalar branch (W = 511; inputs 4 bytes off 16-byte
+    alignment); then timed at the path's pairwise shape and at
+    (65536, 512)."""
+    torch, dev = B.torch, B.dev
+    N, W = 4096, 512
+    flat_b, flat_r = B.words(N * W + 1), B.words(N * W + 1)
+    cases = [(f"path {call}", bms, row)
+             for call, (bms, row) in path_inputs.items()]
+    cases += [("N=1", B.words(1, 512), B.words(1, 512)),
+              ("pairwise 65536", B.words(65536, 512), B.words(65536, 512)),
+              ("broadcast 65536", B.words(65536, 512), B.words(1, 512)),
+              ("W=511", B.words(N, W - 1), B.words(N, W - 1)),
+              ("unaligned", flat_b[1:].view(N, W), flat_r[1:].view(N, W))]
+    err = 0
+    for name, bms, row in cases:
+        a1, c1 = K.bitmap.and_popcount(bms, row)
+        a2, c2 = K.ref.and_popcount_ref(bms, row)
+        torch.cuda.synchronize()
+        e = max(B.err(a1, a2), B.err(c1, c2))
+        if e:
+            raise AssertionError(f"and_popcount {name} disagrees: {e}")
+        log(f"[kernels] and_popcount {name} {tuple(bms.shape)} & "
+            f"{tuple(row.shape)}: bit-exact")
+        err = max(err, e)
+    timed = {}
+    timed_names = ("path candidates_batch", "path candidates_range",
+                   "pairwise 65536", "broadcast 65536")
+    for name, bms, row in (c for c in cases if c[0] in timed_names):
+        n, w = bms.shape
+        out = torch.empty_like(bms)
+        cnt = torch.empty(n, dtype=torch.int32, device=dev)
+        stride = w if row.shape[0] == n and n != 1 else 0
+        ms, cold = B.launch_ms(B.lib.and_popcount_launch, bms.data_ptr(),
+                               row.data_ptr(), out.data_ptr(), cnt.data_ptr(),
+                               n, w, stride, int(w % 4 == 0))
+        wrapper = cuda_ms(torch, lambda: K.bitmap.and_popcount(bms, row))
+        plain = cuda_ms(torch, lambda: K.ref.and_popcount_ref(bms, row))
+        lib_ms = cuda_ms(torch, lambda: torch.bitwise_and(bms, row))
+        bound, by = B.bound(4 * (2 * n * w + row.shape[0] * w + n), 3 * n * w)
+        timed[name] = dict(ms=ms, cold_ms=cold, plain_ms=plain,
+                           library_ms=lib_ms, bound_ms=bound, bound_by=by,
+                           shape=[n, w, int(row.shape[0])])
+        log(f"[kernels] and_popcount {name} {tuple(bms.shape)} & "
+            f"{tuple(row.shape)}: {ms:.5f} ms (cold L2 {cold:.5f} ms, "
+            f"wrapper {wrapper:.5f} ms, plain {plain:.5f} ms, "
+            f"torch.bitwise_and {lib_ms:.5f} ms, bound {bound:.6f} ms by "
+            f"{by})")
+    m = timed["path candidates_batch"]
+    return {"name": "and_popcount", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/and_popcount.cu",
+            "replaces": "src/repro/kernels/bitmap.py:78",
+            "launches": launches["sh"]["and_popcount"], "max_abs_err": err,
+            **m}
 
 
 def main() -> int:
@@ -655,9 +982,12 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import bitmap as kbitmap
     from repro_torch.kernels import deltaenc as kdelta
+    from repro_torch.kernels import minhash as kminhash
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref as kref
     from repro_torch.serve import engine as eng_mod
+    K = SimpleNamespace(ops=kops, ref=kref, bitmap=kbitmap, delta=kdelta,
+                        minhash=kminhash)
 
     t_start = time.perf_counter()
     card = gpu_line()
@@ -673,12 +1003,27 @@ def main() -> int:
         if "Used" in line or "spill" in line:
             log(f"[setup] ptxas {line.strip()}")
 
+    def free(what: str) -> None:
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[time] {what} done at {time.perf_counter() - t_start:.1f} s; "
+            f"torch.cuda.memory_allocated {torch.cuda.memory_allocated()} "
+            "bytes")
+
     launches = {}
-    launches["k1"], bitmap_inputs = main_path_k1(
-        args, torch, dev, T, eng_mod, kops, kbitmap, kdelta)
-    launches["k3"] = main_path_k3(args, torch, dev, T, kops, kbitmap, kdelta)
-    kernels = kernel_phases(torch, dev, kbitmap, kdelta, kref,
-                            bitmap_inputs, launches)
+    launches["k1"], bitmap_inputs, chain = main_path_k1(
+        args, torch, dev, T, eng_mod, K)
+    free("k1 (its store and device tables freed)")
+    launches["sh"], mh_inputs, ap_inputs = main_path_sh(
+        args, torch, dev, T, eng_mod, K, chain)
+    del chain
+    free("sh")
+    launches["k3"] = main_path_k3(args, torch, dev, T, K)
+    free("k3")
+    B = Bench(torch, dev)
+    kernels = vm_and_xor_phases(B, K, bitmap_inputs, launches)
+    kernels.append(minhash_phase(B, K, mh_inputs, launches))
+    kernels.append(and_popcount_phase(B, K, ap_inputs, launches))
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all; peak device "
         f"memory {torch.cuda.max_memory_allocated()} bytes; peak host RSS "
         f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss} KiB")

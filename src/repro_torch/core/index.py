@@ -5,8 +5,9 @@ Two in-memory maps answer "which chunks might hold what I need":
   - key→chunks     (drives Q3 record evolution).
 Record/range retrieval ANDs the two (index-ANDing) over chunk-membership
 bitmaps — the planner (``core/plan.py``) builds the rows with
-:meth:`Projections._bitmap_of` and runs them through the bitmap VM, and
-range predicates locate their keys via ``searchsorted`` over a cached sorted
+:meth:`Projections._bitmap_of` and runs them through the bitmap VM; the
+``candidates*`` API plans a whole session of index-AND queries in ONE
+``and_popcount`` kernel launch (``candidates_batch``), and range predicates locate their keys via ``searchsorted`` over a cached sorted
 key array rather than scanning the key dictionary.  Both lists are
 *lossy*: a fetched chunk may turn out to hold no relevant record (the paper
 notes this explicitly); the exact information lives in the per-chunk maps.
@@ -18,10 +19,12 @@ reproduce the §2.4 index-size discussion.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Iterable, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..device import DeviceLike
+from ..kernels import ops as kops
 from .types import Partitioning
 from .version_graph import VersionGraph
 
@@ -143,6 +146,58 @@ class Projections:
                          np.uint32(1) << (chunk_ids % 32).astype(np.uint32))
         return bm
 
+    def candidates(self, vid: int, pks: Iterable[int], *,
+                   device: DeviceLike = None) -> np.ndarray:
+        """Chunks possibly holding records of any of ``pks`` within version
+        ``vid``: AND of the key bitmaps with the version bitmap, OR'd across
+        keys.  Single-query form of :meth:`candidates_batch`."""
+        return self.candidates_batch([(vid, pks)], device=device)[0]
+
+    def candidates_batch(
+            self, items: Sequence[Tuple[int, Iterable[int]]], *,
+            device: DeviceLike = None) -> List[np.ndarray]:
+        """Plan a whole batch of index-AND queries in ONE kernel launch.
+
+        ``items`` is a list of ``(vid, pks)`` pairs — one per point/multi-
+        point/range query in a session.  Per query, the key posting lists
+        are OR'd on the host (cheap: W words each) into one row; the rest
+        is :meth:`and_version_batch`.
+        """
+        return self.and_version_batch(
+            [(vid, [self.key_chunks.get(pk) for pk in pks])
+             for vid, pks in items], device=device)
+
+    def and_version_batch(
+            self, items: Sequence[Tuple[int, Sequence[Optional[np.ndarray]]]],
+            *, device: DeviceLike = None) -> List[np.ndarray]:
+        """AND arbitrary chunk-id posting lists against version bitmaps in
+        ONE pairwise kernel launch on ``device`` (``None`` = the card).
+
+        Each item is ``(vid, posting_lists)``: the posting lists (any
+        chunk-granularity source — primary-key postings, secondary-attribute
+        postings; ``None``/empty entries allowed) are OR'd into one bitmap
+        row, and the N OR'd rows are AND'd pairwise against the N version
+        rows by a single ``and_popcount_batch`` call (the (N, W) & (N, W)
+        kernel path).  Returns one sorted chunk-id array per item.
+        """
+        if not items:
+            return []
+        W = (self.n_chunks + 31) // 32
+        key_rows = np.zeros((len(items), max(W, 1)), dtype=np.uint32)
+        ver_rows = np.zeros((len(items), max(W, 1)), dtype=np.uint32)
+        nonempty = np.zeros(len(items), dtype=bool)
+        for i, (vid, postings) in enumerate(items):
+            ver_rows[i] = self._bitmap_of(self.version_chunks[vid])
+            for ids in postings:
+                if ids is not None and len(ids):
+                    np.bitwise_or.at(key_rows[i], ids // 32,
+                                     np.uint32(1) << (ids % 32).astype(np.uint32))
+                    nonempty[i] = True
+        anded, _ = kops.and_popcount_batch(key_rows, ver_rows, device=device)
+        empty = np.empty(0, np.int64)
+        return [_bitmap_to_ids(anded[i], self.n_chunks) if nonempty[i] else empty
+                for i in range(len(items))]
+
     # ----------------------------------------------------------- key ranges
     def sorted_keys(self) -> np.ndarray:
         """All indexed primary keys, sorted.
@@ -166,6 +221,11 @@ class Projections:
         lo = np.searchsorted(ks, key_lo, side="left")
         hi = np.searchsorted(ks, key_hi, side="right")
         return ks[lo:hi]
+
+    def candidates_range(self, vid: int, key_lo: int, key_hi: int, *,
+                         device: DeviceLike = None) -> np.ndarray:
+        return self.candidates(vid, self.keys_in_range(key_lo, key_hi),
+                               device=device)
 
     # ----------------------------------------------------------- index size
     def compressed_size(self) -> Dict[str, int]:

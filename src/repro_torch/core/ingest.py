@@ -43,7 +43,7 @@ unless the caller asks for the CPU).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -452,6 +452,15 @@ class RStore:
             writes.append((f"map/{cid}", cmap.to_bytes()))
         return writes
 
+    def _partitioner(self):
+        """The configured offline partitioner; one that runs a kernel
+        (SHINGLE's min-hash) runs it on the store's device."""
+        cls = ALGORITHMS[self.config.algorithm]
+        kw = self.config.algo_kwargs()
+        if "device" in {f.name for f in fields(cls)}:
+            kw["device"] = self.device
+        return cls(**kw)
+
     def build(self) -> Partitioning:
         """Full offline build (also the k>1 path)."""
         self._check_no_open_writer("build()")
@@ -464,8 +473,7 @@ class RStore:
             sub_sizes = (compressed_subchunk_sizes(graph, groups, self.device)
                          if graph.store.has_payloads() else None)
             tds = build_transformed(graph, groups, sub_sizes)
-            algo = ALGORITHMS[cfg.algorithm](**cfg.algo_kwargs())
-            tpart = algo.partition(tds.tgraph, cfg.capacity)
+            tpart = self._partitioner().partition(tds.tgraph, cfg.capacity)
             self._subchunk_groups = groups
             # compose record -> chunk
             self.r2c = tpart.record_to_chunk[tds.rec_to_sub]
@@ -478,8 +486,7 @@ class RStore:
             sub_groups_of = {c.chunk_id: [groups[s] for s in tc.record_ids]
                              for c, tc in zip(chunks, tpart.chunks)}
         else:
-            algo = ALGORITHMS[cfg.algorithm](**cfg.algo_kwargs())
-            part = algo.partition(graph, cfg.capacity)
+            part = self._partitioner().partition(graph, cfg.capacity)
             self.r2c = part.record_to_chunk.copy()
             sub_groups_of = {}
 

@@ -90,11 +90,16 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.bitmap_vm_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
         lib.bitmap_vm_launch.restype = i32
         lib.xor_delta_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
         lib.xor_delta_launch.restype = i32
+        lib.and_popcount_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
+                                            i32, ptr]
+        lib.and_popcount_launch.restype = i32
+        lib.minhash_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i32, ptr]
+        lib.minhash_launch.restype = i32
         _lib = lib
     return _lib
 

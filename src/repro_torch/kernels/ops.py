@@ -18,6 +18,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from . import bitmap as _bitmap
 from . import deltaenc as _deltaenc
+from . import minhash as _minhash
 
 # One xor_delta launch covers at most this many bytes of each input; a
 # larger batch of pairs is split into several launches.
@@ -33,6 +34,39 @@ def _to_device(words: np.ndarray, device: torch.device) -> torch.Tensor:
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy().view(np.uint32)
+
+
+# ------------------------------------------------------------------ minhash
+def hash_family(n_hashes: int, seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """Multiply-shift universal hash family: odd multipliers + offsets."""
+    rng = np.random.default_rng(seed)
+    a = (rng.integers(0, 2**32, size=n_hashes, dtype=np.uint32) | 1).astype(np.uint32)
+    b = rng.integers(0, 2**32, size=n_hashes, dtype=np.uint32)
+    return a, b
+
+
+def minhash_csr(indptr: np.ndarray, col: np.ndarray, a: np.ndarray,
+                b: np.ndarray, *, device: DeviceLike = None) -> np.ndarray:
+    """Min-hash ragged CSR rows in one launch.  Returns (R, L) uint32;
+    empty rows → 0xFFFFFFFF.  ``col`` is cast to int32 on the host, as the
+    reference's padded blocks hold it."""
+    dev = resolve_device(device)
+    ptr = torch.from_numpy(np.ascontiguousarray(indptr, dtype=np.int64))
+    ent = torch.from_numpy(np.ascontiguousarray(col).astype(np.int32))
+    out = _minhash.minhash(ptr.to(dev), ent.to(dev), _to_device(a, dev),
+                           _to_device(b, dev))
+    return np.ascontiguousarray(_to_host(out).T)
+
+
+def minhash_padded(versions_padded: np.ndarray, a: np.ndarray, b: np.ndarray,
+                   *, device: DeviceLike = None) -> np.ndarray:
+    """Min-hash (R, D) rows padded with -1.  Returns (R, L) uint32.  The
+    rows go to the same kernel as a CSR of uniform degree D (the kernel
+    skips the -1 entries)."""
+    R, D = versions_padded.shape
+    indptr = np.arange(R + 1, dtype=np.int64) * D
+    return minhash_csr(indptr, np.asarray(versions_padded).reshape(-1), a, b,
+                       device=device)
 
 
 # ---------------------------------------------------------------- xor delta
@@ -106,9 +140,34 @@ def xor_delta_bytes(parent: bytes, child: bytes, *,
 
 
 # ------------------------------------------------------------------- bitmap
-# Bitmap-plan launches since import.  The planner's one-launch-per-batch
-# contract is asserted against deltas of this counter.
+# Bitmap-plan launches since import (the index-AND and the bitmap VM).  The
+# planner's one-launch-per-batch contract is asserted against deltas of this
+# counter.
 BITMAP_LAUNCHES = 0
+
+
+def and_popcount_batch(bitmaps: np.ndarray, row: np.ndarray, *,
+                       device: DeviceLike = None
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+    """AND (N, W) bitmaps against a row; returns (anded, popcounts).
+
+    ``row`` is a single shared (W,)/(1, W) bitmap (broadcast against every
+    bitmap — the single-query index-AND) or a pairwise (N, W) batch (row i
+    ANDs bitmaps[i] — one kernel launch plans a whole query session).
+    """
+    global BITMAP_LAUNCHES
+    BITMAP_LAUNCHES += 1
+    N, W = bitmaps.shape
+    row = np.asarray(row)
+    if row.ndim == 1:
+        row = row[None, :]
+    if row.shape not in ((1, W), (N, W)):
+        raise ValueError(f"row must be ({W},), (1, {W}) or ({N}, {W}); "
+                         f"got {row.shape}")
+    dev = resolve_device(device)
+    anded, cnt = _bitmap.and_popcount(_to_device(bitmaps, dev),
+                                      _to_device(row, dev))
+    return _to_host(anded), cnt.cpu().numpy()
 
 
 def bitmap_vm_batch(regs: np.ndarray, prog: np.ndarray, *,

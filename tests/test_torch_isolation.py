@@ -10,7 +10,9 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch.core import RStore, ShardedDeviceKVS
+from repro_torch.core import RStore, ShardedDeviceKVS, VersionGraph
+from repro_torch.core.index import Projections
+from repro_torch.core.partition import ShinglePartitioner
 from repro_torch.kernels import ops
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
@@ -23,7 +25,10 @@ def _port_modules():
 
 def test_port_imports_no_jax_and_no_reference():
     mods = _port_modules()
-    assert "repro_torch.kernels.ops" in mods and "repro_torch.interop" in mods
+    for m in ("kernels.ops", "interop", "kernels.minhash",
+              "core.partition.shingle", "core.partition.traversal",
+              "core.partition.baselines", "core.query"):
+        assert "repro_torch." + m in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -45,12 +50,25 @@ def test_chip_smoke_imports_no_jax_and_no_reference():
             assert words[1].split(".")[0] not in ("jax", "repro"), line
 
 
+def _one_version_graph() -> VersionGraph:
+    g = VersionGraph()
+    g.add_root(0, g.store.add_batch(np.arange(4), np.full(4, 8)))
+    return g
+
+
 @pytest.mark.parametrize("entry", [
     lambda: ShardedDeviceKVS(),
     lambda: ops.bitmap_vm_batch(np.zeros((2, 2), np.uint32),
                                 np.zeros((0, 4), np.int32)),
     lambda: ops.xor_delta_bytes(b"ab", b"cd"),
     lambda: RStore(),
+    lambda: ops.minhash_csr(np.array([0, 1]), np.array([3]),
+                            *ops.hash_family(2)),
+    lambda: ops.and_popcount_batch(np.ones((2, 2), np.uint32),
+                                   np.ones(2, np.uint32)),
+    lambda: ShinglePartitioner().partition(_one_version_graph(), 1024),
+    lambda: Projections({0: np.array([0])}, {1: np.array([0])},
+                        1).candidates_batch([(0, [1])]),
 ])
 def test_default_device_is_the_card(entry):
     """With no device given, an entry point asks for CUDA and raises here

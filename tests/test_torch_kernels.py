@@ -6,20 +6,23 @@ kernels are held against those same plain versions on the card by
 packages; the tolerance is exact equality, since these are integer kernels.
 The reference's ``bitmap_vm`` Pallas body does not trace on the installed
 JAX, so the VM is compared with ``ref.bitmap_vm_ref`` and
-``ops.bitmap_vm_batch``; ``xor_delta`` runs its Pallas body in interpret
-mode.
+``ops.bitmap_vm_batch``; ``xor_delta``, ``minhash`` and ``and_popcount`` run
+their Pallas bodies in interpret mode.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels import bitmap as rbitmap
 from repro.kernels import deltaenc as rdelta
+from repro.kernels import minhash as rminhash
 from repro.kernels import ops as rops
 from repro.kernels import ref as rref
 
 from repro_torch.kernels import bitmap as tbitmap
 from repro_torch.kernels import deltaenc as tdelta
+from repro_torch.kernels import minhash as tminhash
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
@@ -159,6 +162,7 @@ def test_bitmap_vm_counts_one_launch_per_call():
     assert tops.BITMAP_LAUNCHES - before == 2
     # the CUDA kernels' own counters move only where a kernel launched
     assert tbitmap.LAUNCHES == tdelta.LAUNCHES == 0
+    assert tbitmap.AND_LAUNCHES == tminhash.LAUNCHES == 0
 
 
 def test_popcount_swar_exact():
@@ -168,3 +172,151 @@ def test_popcount_swar_exact():
     np.testing.assert_array_equal(got, [bin(int(x)).count("1") for x in v])
     np.testing.assert_array_equal(
         got, np.asarray(rref.popcount32_ref(jnp.asarray(v))))
+
+
+# ------------------------------------------------------------------ minhash
+def _csr(rows):
+    indptr = np.cumsum([0] + [len(r) for r in rows]).astype(np.int64)
+    col = np.asarray([v for r in rows for v in r], dtype=np.int64)
+    return indptr, col
+
+
+def _padded_to_csr(vers: np.ndarray):
+    R, D = vers.shape
+    return (np.arange(R + 1, dtype=np.int64) * D,
+            vers.reshape(-1).astype(np.int32))
+
+
+@pytest.mark.parametrize("R,D,L", [(128, 128, 1), (256, 128, 8),
+                                   (128, 384, 16), (128, 128, 40)])
+def test_minhash_matches_reference_kernel(R, D, L):
+    rng = np.random.default_rng(R * 1000 + D + L)
+    vers = rng.integers(0, 10_000, size=(R, D)).astype(np.int32)
+    vers[rng.random((R, D)) < 0.4] = -1
+    vers[5] = -1                                      # an empty row
+    a, b = rops.hash_family(L, seed=7)
+    want = np.asarray(rminhash.minhash(jnp.asarray(vers), jnp.asarray(a),
+                                       jnp.asarray(b), interpret=True))
+    np.testing.assert_array_equal(
+        _u(tref.minhash_ref(_t(vers), _t(a), _t(b))), want)
+    ptr, col = _padded_to_csr(vers)
+    got = tminhash.minhash(torch.from_numpy(ptr), torch.from_numpy(col),
+                           _t(a), _t(b))
+    np.testing.assert_array_equal(_u(got), want)
+    np.testing.assert_array_equal(tops.minhash_padded(vers, a, b, device=CPU),
+                                  want.T)
+    np.testing.assert_array_equal(rops.minhash_padded(vers, a, b), want.T)
+
+
+def _minhash_cases():
+    rng = np.random.default_rng(21)
+    ragged = [rng.integers(0, 2**20, int(rng.integers(0, 40))).tolist()
+              for _ in range(300)]
+    ragged[3] = ragged[77] = []
+    a8, b8 = rops.hash_family(8, 1)
+    # a = 1 with b >= 2^31: every hash of a small entry is >= 2^31, so a
+    # signed min would return the wrong word; large entries with odd a wrap
+    # mod 2^32 (entries >= 2^31 / a)
+    a_hi = np.array([1, 3, 0x9E3779B1], dtype=np.uint32)
+    b_hi = np.array([2**31 + 5, 2**32 - 100, 2**31], dtype=np.uint32)
+    big = [rng.integers(2**30, 2**31 - 1, 20).tolist() for _ in range(50)]
+    return {
+        "ragged": (*_csr(ragged), a8, b8),
+        "empty_rows": (*_csr([[], [], [4, 4], []]), a8, b8),
+        "R=0": (np.zeros(1, np.int64), np.zeros(0, np.int64), a8, b8),
+        "high_hashes": (*_csr([[0, 1, 2], [7], [2**31 - 1]] + big), a_hi,
+                        b_hi),
+        "skips_pad": (*_csr([[5, -1, 9], [-1, -1], [-1]]), a8, b8),
+    }
+
+
+@pytest.mark.parametrize("case", ["ragged", "empty_rows", "R=0",
+                                  "high_hashes", "skips_pad"])
+def test_minhash_csr_matches_reference(case):
+    indptr, col, a, b = _minhash_cases()[case]
+    want = rops.minhash_csr(indptr, col, a, b)
+    if len(indptr) > 1:     # the Pallas body, in interpret mode
+        np.testing.assert_array_equal(
+            rops.minhash_csr(indptr, col, a, b, force_kernel=True), want)
+    got = tops.minhash_csr(indptr, col, a, b, device=CPU)
+    assert got.dtype == np.uint32 and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    plain = tref.minhash_csr_ref(torch.from_numpy(indptr),
+                                 torch.from_numpy(col.astype(np.int32)),
+                                 _t(a), _t(b))
+    np.testing.assert_array_equal(_u(plain).T, want)
+    # and a plain Python min over each row's set
+    for i in range(len(indptr) - 1):
+        row = {int(v) for v in col[indptr[i]:indptr[i + 1]] if v != -1}
+        for l in range(len(a)):
+            assert got[i, l] == min(
+                ((int(a[l]) * (v & 0xFFFFFFFF) + int(b[l])) & 0xFFFFFFFF
+                 for v in row), default=0xFFFFFFFF)
+
+
+def test_minhash_high_hashes_are_unsigned():
+    indptr, col, a, b = _minhash_cases()["high_hashes"]
+    got = tops.minhash_csr(indptr, col, a, b, device=CPU)
+    # a = 1, b = 2^31 + 5: the mins of the first rows are >= 2^31 ...
+    np.testing.assert_array_equal(got[:2, 0], [2**31 + 5, 2**31 + 12])
+    # ... and 2^31 - 1 + b wraps past 2^32
+    assert got[2, 0] == 4
+
+
+def test_hash_family_is_the_reference_family():
+    for n, seed in ((8, 0), (3, 5), (40, 1)):
+        for x, y in zip(tops.hash_family(n, seed), rops.hash_family(n, seed)):
+            assert x.dtype == y.dtype == np.uint32
+            np.testing.assert_array_equal(x, y)
+
+
+# ------------------------------------------------------------- and_popcount
+@pytest.mark.parametrize("N,W,pairwise", [(128, 128, False), (256, 256, True),
+                                          (128, 33, True), (128, 7, False)])
+def test_and_popcount_matches_reference_kernel(N, W, pairwise):
+    rng = np.random.default_rng(N * 7 + W + pairwise)
+    bms = rng.integers(0, 2**32, size=(N, W), dtype=np.uint32)
+    row = rng.integers(0, 2**32, size=(N if pairwise else 1, W),
+                       dtype=np.uint32)
+    bms[::5] = 0
+    ra, rc = rbitmap.and_popcount(jnp.asarray(bms), jnp.asarray(row),
+                                  interpret=True)
+    ra, rc = np.asarray(ra), np.asarray(rc)
+    ta, tc = tbitmap.and_popcount(_t(bms), _t(row))
+    np.testing.assert_array_equal(_u(ta), ra)
+    np.testing.assert_array_equal(tc.numpy(), rc)
+    pa, pc = tref.and_popcount_ref(_t(bms), _t(row))
+    np.testing.assert_array_equal(_u(pa), ra)
+    np.testing.assert_array_equal(pc.numpy(), rc)
+    oa, oc = tops.and_popcount_batch(bms, row, device=CPU)
+    np.testing.assert_array_equal(oa, ra)
+    np.testing.assert_array_equal(oc, rc)
+    assert oc.dtype == rc.dtype == np.int32
+
+
+@pytest.mark.parametrize("N,W,row_rows", [(5, 9, None), (5, 9, 1), (5, 9, 5),
+                                          (1, 4, 1), (0, 4, None),
+                                          (3, 0, 3)])
+def test_and_popcount_batch_row_shapes(N, W, row_rows):
+    """(W,), (1, W) and (N, W) rows, N = 1, N = 0 and W = 0, each one
+    BITMAP_LAUNCHES, with the reference's results."""
+    rng = np.random.default_rng(N * 10 + W)
+    bms = rng.integers(0, 2**32, size=(N, W), dtype=np.uint32)
+    shape = (W,) if row_rows is None else (row_rows, W)
+    row = rng.integers(0, 2**32, size=shape, dtype=np.uint32)
+    r0, t0 = rops.BITMAP_LAUNCHES, tops.BITMAP_LAUNCHES
+    ra, rc = rops.and_popcount_batch(bms, row)
+    ta, tc = tops.and_popcount_batch(bms, row, device=CPU)
+    assert rops.BITMAP_LAUNCHES - r0 == tops.BITMAP_LAUNCHES - t0 == 1
+    np.testing.assert_array_equal(ta, ra)
+    np.testing.assert_array_equal(tc, rc)
+    assert ta.shape == (N, W) and tc.shape == (N,)
+
+
+def test_and_popcount_batch_bad_row_raises():
+    bms = np.zeros((4, 6), np.uint32)
+    for row in (np.zeros((2, 6), np.uint32), np.zeros(5, np.uint32)):
+        with pytest.raises(ValueError, match="row must be"):
+            rops.and_popcount_batch(bms, row)
+        with pytest.raises(ValueError, match="row must be"):
+            tops.and_popcount_batch(bms, row, device=CPU)

@@ -196,6 +196,162 @@ def test_query_engine_waves_match():
         [e["plan"] for e in te.explain(_wave(T.Q, N_VERSIONS, 1))]
 
 
+# ------------------------------------------ offline layouts (rs.build())
+OFFLINE = ["shingle", "depth_first", "breadth_first"]
+
+
+def _same_partitioning(rp, tp):
+    assert rp.algorithm == tp.algorithm
+    assert [(c.chunk_id, c.record_ids.tolist(), c.nbytes) for c in rp.chunks] \
+        == [(c.chunk_id, c.record_ids.tolist(), c.nbytes) for c in tp.chunks]
+    assert rp.record_to_chunk.tolist() == tp.record_to_chunk.tolist()
+
+
+def _build_offline_pair(algo, k, seed, kind="sharded_device",
+                        flush_on_close=False):
+    """Both stores write the workload (staged only, unless
+    ``flush_on_close`` flushes each session online), then run one full
+    offline ``build()`` with the configured partitioner."""
+    sessions, states = _workload(seed, p_d=None if k == 1 else 0.1)
+    rk, tk = _backends(kind)
+    ref = R.RStore(R.RStoreConfig(algorithm=algo, capacity=CAPACITY, k=k), rk)
+    port = T.RStore(T.RStoreConfig(algorithm=algo, capacity=CAPACITY, k=k),
+                    tk, device="cpu")
+    parts = []
+    for rs, kvs in ((ref, rk), (port, tk)):
+        for sess in sessions:
+            w = rs.writer(flush_on_close=flush_on_close)
+            for op in sess:
+                if op[0] == "root":
+                    w.init_root(op[1])
+                else:
+                    w.commit(op[1], op[2], op[3])
+            w.close()
+        assert bool(rs.n_chunks) == flush_on_close
+        s0 = _kvs_stats(kvs)
+        parts.append((rs.build(), _delta(_kvs_stats(kvs), s0)))
+    (rp, rdelta), (tp, tdelta) = parts
+    _same_partitioning(rp, tp)
+    assert rdelta == tdelta
+    return ref, port, states
+
+
+@pytest.mark.parametrize("algo", OFFLINE)
+@pytest.mark.parametrize("k", [1, 3])
+def test_offline_layout_parity(algo, k):
+    ref, port, states = _build_offline_pair(algo, k, seed=5 + k)
+    assert ref.r2c.tolist() == port.r2c.tolist()
+    assert ref.storage_stats() == port.storage_stats()
+    for w in range(2):
+        rq, tq = _wave(R.Q, N_VERSIONS, 20 + w), _wave(T.Q, N_VERSIONS, 20 + w)
+        r0, t0 = _kvs_stats(ref.kvs), _kvs_stats(port.kvs)
+        rl, tl = rops.BITMAP_LAUNCHES, tops.BITMAP_LAUNCHES
+        rb = ref.snapshot().execute(rq)
+        tb = port.snapshot().execute(tq)
+        assert rops.BITMAP_LAUNCHES - rl == tops.BITMAP_LAUNCHES - tl == 1
+        _assert_same_batch(rb, tb)
+        assert _delta(_kvs_stats(ref.kvs), r0) == _delta(_kvs_stats(port.kvs),
+                                                         t0)
+    res = port.snapshot().execute([T.Q.version(v) for v in states])
+    assert [r.value for r in res] == list(states.values())
+    assert sorted(ref.kvs.scan()) == sorted(port.kvs.scan())
+
+
+@pytest.mark.parametrize("algo", OFFLINE)
+def test_offline_build_after_online_flush_parity(algo):
+    """A store that has flushed online is laid out again by ``build()``."""
+    ref, port, states = _build_offline_pair(algo, 1, seed=11,
+                                            flush_on_close=True)
+    assert ref.r2c.tolist() == port.r2c.tolist()
+    assert ref.storage_stats() == port.storage_stats()
+    rq, tq = _wave(R.Q, N_VERSIONS, 30), _wave(T.Q, N_VERSIONS, 30)
+    r0, t0 = _kvs_stats(ref.kvs), _kvs_stats(port.kvs)
+    _assert_same_batch(ref.snapshot().execute(rq),
+                       port.snapshot().execute(tq))
+    assert _delta(_kvs_stats(ref.kvs), r0) == _delta(_kvs_stats(port.kvs), t0)
+    res = port.snapshot().execute([T.Q.version(v) for v in states])
+    assert [r.value for r in res] == list(states.values())
+    assert sorted(ref.kvs.scan()) == sorted(port.kvs.scan())
+
+
+def _candidate_items(port, rng, n=12):
+    vids = port.graph.versions
+    return [(int(vids[i % len(vids)]),
+             [int(x) for x in rng.integers(0, N_BASE + 30,
+                                           int(rng.integers(0, 6)))])
+            for i in range(n)]
+
+
+def _host_candidates(proj, vid, pks):
+    """Candidate chunks without bitmaps: the union of the keys' postings
+    intersected with the version's chunks."""
+    post = [proj.key_chunks[pk] for pk in pks if pk in proj.key_chunks]
+    keys = np.unique(np.concatenate(post)) if post else np.empty(0, np.int64)
+    return np.intersect1d(keys, proj.version_chunks[vid])
+
+
+@pytest.mark.parametrize("algo", ["bottom_up", "shingle"])
+def test_candidates_api_matches_reference(algo):
+    ref, port, _ = _build_offline_pair(algo, 1, seed=9, kind="memory")
+    rp, tp = ref.proj, port.proj
+    rng = np.random.default_rng(4)
+    items = _candidate_items(port, rng)
+    r0, t0 = rops.BITMAP_LAUNCHES, tops.BITMAP_LAUNCHES
+    rb = rp.candidates_batch(items)
+    tb = tp.candidates_batch(items, device="cpu")
+    assert rops.BITMAP_LAUNCHES - r0 == tops.BITMAP_LAUNCHES - t0 == 1
+    for (vid, pks), r, t in zip(items, rb, tb):
+        np.testing.assert_array_equal(t, r)
+        np.testing.assert_array_equal(t, _host_candidates(tp, vid, pks))
+        np.testing.assert_array_equal(tp.candidates(vid, pks, device="cpu"), r)
+    for lo, hi in [(0, 5), (10, 40), (150, 175), (500, 600), (-5, 2)]:
+        vid = int(port.graph.versions[lo % len(port.graph.versions)])
+        r0, t0 = rops.BITMAP_LAUNCHES, tops.BITMAP_LAUNCHES
+        want = rp.candidates_range(vid, lo, hi)
+        got = tp.candidates_range(vid, lo, hi, device="cpu")
+        assert rops.BITMAP_LAUNCHES - r0 == tops.BITMAP_LAUNCHES - t0 == 1
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(
+            got, _host_candidates(tp, vid, tp.keys_in_range(lo, hi).tolist()))
+    postings = [(int(port.graph.versions[-1]),
+                 [None, np.array([0, 2], np.int64), np.empty(0, np.int64)]),
+                (0, [None])]
+    for r, t in zip(rp.and_version_batch(postings),
+                    tp.and_version_batch(postings, device="cpu")):
+        np.testing.assert_array_equal(t, r)
+    t0 = tops.BITMAP_LAUNCHES
+    assert tp.and_version_batch([], device="cpu") == [] == \
+        rp.and_version_batch([])
+    assert tops.BITMAP_LAUNCHES == t0                 # no launch for nothing
+
+
+def test_query_processor_matches_reference():
+    from repro.core.query import QueryProcessor as RQP
+    from repro_torch.core.query import QueryProcessor as TQP
+    ref, port, _ = _build_offline_pair("shingle", 1, seed=13, kind="memory")
+    rq = RQP(ref.graph, ref.proj, ref.kvs)
+    tq = TQP(port.graph, port.proj, port.kvs, device="cpu")
+    calls = [("get_version", (3,)), ("get_version", (N_VERSIONS - 1,)),
+             ("get_range", (8, 20, 60)), ("get_record", (5, 17)),
+             ("get_record", (5, 10_000)), ("get_evolution", (17,)),
+             ("get_evolution", (N_BASE + 1,))]
+    for name, args in calls:
+        rv, rs_ = getattr(rq, name)(*args)
+        tv, ts_ = getattr(tq, name)(*args)
+        assert rv == tv, name
+        assert _stats(rs_) == _stats(ts_), name
+
+
+@pytest.mark.parametrize("algo", ["shingle", "depth_first"])
+def test_interop_carries_offline_layouts(algo):
+    ref, _, _ = _build_offline_pair(algo, 1, seed=17, kind="memory")
+    port = rstore_from_state(_dump(ref), T.RStoreConfig(
+        algorithm=algo, capacity=CAPACITY), device="cpu")
+    assert port.storage_stats() == ref.storage_stats()
+    _assert_same_batch(ref.snapshot().execute(_wave(R.Q, N_VERSIONS, 6)),
+                       port.snapshot().execute(_wave(T.Q, N_VERSIONS, 6)))
+
+
 def _dump(rs):
     """The reference store's state as plain numpy arrays and bytes."""
     g = rs.graph
@@ -300,3 +456,33 @@ def test_subchunks_and_compressed_sizes_match_reference():
     assert [x.tolist() for x in rg] == [x.tolist() for x in tg]
     np.testing.assert_array_equal(rs.compressed_subchunk_sizes(g, rg),
                                   ts.compressed_subchunk_sizes(t, tg, "cpu"))
+
+
+@pytest.mark.parametrize("retire", [False, True])
+@pytest.mark.parametrize("branch,merge", [(0.0, 0.0), (0.2, 0.1)])
+def test_all_partitioners_match_reference(branch, merge, retire):
+    """Every algorithm of ``ALGORITHMS`` gives the reference's partitioning,
+    also over a graph with retired versions (the retention-GC paths)."""
+    from repro.core import partition as rpart
+    from repro_torch.core import partition as tpart
+    assert list(rpart.ALGORITHMS) == list(tpart.ALGORITHMS)
+    assert rpart.__all__ == tpart.__all__
+    g, t = _graph_pair(branch, merge, seed=6)
+    if retire:
+        g.retire(g.versions[1:4])
+        t.retire(t.versions[1:4])
+    for name in rpart.ALGORITHMS:
+        kw = {"device": "cpu"} if name == "shingle" else {}
+        rp = rpart.ALGORITHMS[name]().partition(g, 1024)
+        tp = tpart.ALGORITHMS[name](**kw).partition(t, 1024)
+        _same_partitioning(rp, tp)
+    db_r, db_t = rpart.DeltaBaseline(), tpart.DeltaBaseline()
+    rp, tp = db_r.partition(g, 1024), db_t.partition(t, 1024)
+    assert db_r.version_spans(g, rp) == db_t.version_spans(t, tp)
+    assert db_r.total_version_span(g, rp) == db_t.total_version_span(t, tp)
+    sp_r = rpart.ShinglePartitioner(n_hashes=4, seed=3).partition(g, 1024)
+    sp_t = tpart.ShinglePartitioner(n_hashes=4, seed=3,
+                                    device="cpu").partition(t, 1024)
+    _same_partitioning(sp_r, sp_t)
+    assert rpart.total_version_span(g, sp_r) == \
+        tpart.total_version_span(t, sp_t)

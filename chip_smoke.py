@@ -29,7 +29,8 @@ then:
    checked 64-query wave.
 4. Kernel phases: each kernel against its plain PyTorch version on the card,
    bit-exact, at the shapes the main paths gave it and at the shapes named
-   below, with CUDA-event times beside the bound.
+   below, with device times (a CUDA graph of 200 launches) and host-launched
+   CUDA-event times beside the bound.
 
 Each kernel wrapper counts its own launches; all four counts are zeroed
 just before each main path and read just after it.  Every phase raises on
@@ -483,6 +484,7 @@ def main_path_k3(args, torch, dev, T, K):
         ingest(rs, chain, flush_on_close=False)
         stage_s = time.perf_counter() - t0
         zero_launches(K)
+        delta_inputs.clear()
         t0 = time.perf_counter()
         rs.build()
         torch.cuda.synchronize()
@@ -508,10 +510,13 @@ def main_path_k3(args, torch, dev, T, K):
         raise AssertionError("the k=3 path launched no xor_delta kernel")
     if st["stored_chunk_bytes"] >= st["raw_unique_bytes"]:
         raise AssertionError("sub-chunk compression stored no fewer bytes")
+    by_size = sorted(delta_inputs, key=lambda s: (s[0] * s[1], s))
     log(f"[k3] launches during build + wave: {json.dumps(launches)}; "
-        f"largest xor_delta input {max(delta_inputs)}")
+        f"xor_delta input shapes: largest {by_size[-1]}, median "
+        f"{by_size[len(by_size) // 2]}, smallest {by_size[0]}, "
+        f"{sum(s[0] for s in delta_inputs)} pairs in all")
     log("[k3] every answer equals the dict oracle")
-    return launches
+    return launches, delta_inputs
 
 
 def query_leaves(proj, q) -> List[Tuple[int, List[int]]]:
@@ -689,13 +694,43 @@ class Bench:
         return int((a.to(t.int64) - b.to(t.int64)).abs().max()) \
             if a.numel() else 0
 
-    def launch_ms(self, entry, *args) -> Tuple[float, float]:
-        """(warm ms over 200 back-to-back launches, cold-L2 ms)."""
-        rc = entry(*args, self.stream)
-        self._build.check(rc, entry.__name__)
-        return (cuda_ms(self.torch, lambda: entry(*args, self.stream),
-                        iters=200),
-                cold_ms(self.torch, lambda: entry(*args, self.stream)))
+    def launch_ms(self, entry, *args) -> Dict[str, float]:
+        """Times of one launch of a C entry point on preallocated buffers:
+        ``ms``, device time (a CUDA graph of 200 launches, replayed between
+        CUDA events, so the host's launch rate stays out of it);
+        ``event_ms``, CUDA events around 200 launches from the host (below
+        about 10 us this is the host's launch rate); ``cold_ms``, single
+        launches after L2 has been overwritten."""
+        torch, check = self.torch, self._build.check
+
+        def on_current_stream():
+            # inside a graph capture, the current stream is the capture's
+            check(entry(*args, torch.cuda.current_stream().cuda_stream),
+                  entry.__name__)
+        check(entry(*args, self.stream), entry.__name__)
+        return dict(ms=self.graph_ms(on_current_stream),
+                    event_ms=cuda_ms(torch, lambda: entry(*args, self.stream),
+                                     iters=200),
+                    cold_ms=cold_ms(torch, lambda: entry(*args, self.stream)))
+
+    def graph_ms(self, fn, iters: int = 200, replays: int = 5) -> float:
+        """Mean device time of one ``fn()``: ``iters`` calls captured into
+        one CUDA graph, replayed between CUDA events."""
+        torch = self.torch
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(replays):
+            graph.replay()
+        e1.record()
+        e1.synchronize()
+        return e0.elapsed_time(e1) / (replays * iters)
 
     @staticmethod
     def bound(nbytes: float, nops: float) -> Tuple[float, str]:
@@ -705,14 +740,15 @@ class Bench:
                                      else "operations")
 
 
-def vm_and_xor_phases(B: Bench, K, bitmap_inputs, launches):
+def vm_and_xor_phases(B: Bench, K, bitmap_inputs, delta_shapes, launches):
     """bitmap_vm and xor_delta against their plain versions, then timed.
-    ``ms`` is the kernel alone: CUDA events around back-to-back launches of
-    the C entry point on preallocated buffers, so the Python wrapper's own
-    cost (allocation, checks; ``wrapper_ms`` in the log) stays out of it.
-    Those launches find their inputs in L2, as the main path's do: it copies
-    them to the card just before each launch.  ``cold_ms`` times single
-    launches after L2 has been overwritten."""
+    Each time is the kernel alone, launched through its C entry point on
+    preallocated buffers (``Bench.launch_ms``: ``ms`` device time from a
+    CUDA graph, ``event_ms`` host-launched, ``cold_ms`` after an L2
+    overwrite), so the Python wrapper's own cost (allocation, checks;
+    ``wrapper_ms`` in the log) stays out of it.  Warm launches find their
+    inputs in L2, as the main path's do: it copies them to the card just
+    before each launch."""
     torch, dev = B.torch, B.dev
     kbitmap, kdelta, kref = K.bitmap, K.delta, K.ref
 
@@ -722,12 +758,25 @@ def vm_and_xor_phases(B: Bench, K, bitmap_inputs, launches):
         prog[:, 1:] = torch.randint(0, S, (P, 3), generator=B.gen)
         return prog.to(dev)
 
-    # ---- bitmap_vm: the waves' own programs, then the named shapes
+    self_prog = rand_prog(129, 64)
+    self_prog[::2, 1] = self_prog[::2, 2]           # dst == lhs
+    self_prog[1::4, 1] = self_prog[1::4, 3]         # dst == rhs
+    # ---- bitmap_vm: the waves' own programs, then the named shapes; the
+    # last is too tall for a shared-memory tile, so the kernel works in out
     cases = [("wave", r, p) for r, p in bitmap_inputs]
-    cases.append(("random", B.words(256, 4096), rand_prog(256, 128)))
-    cases.append(("P=0", B.words(256, 4096), rand_prog(256, 0)))
-    cases.append(("all-zero", torch.zeros((64, 1024), dtype=torch.int32,
-                                          device=dev), rand_prog(64, 64)))
+    cases += [("random", B.words(256, 4096), rand_prog(256, 128)),
+              ("P=0", B.words(256, 4096), rand_prog(256, 0)),
+              ("all-zero", torch.zeros((64, 1024), dtype=torch.int32,
+                                       device=dev), rand_prog(64, 64)),
+              ("dst=lhs", B.words(129, 512), self_prog),
+              ("P=1500", B.words(129, 512), rand_prog(129, 1500)),
+              ("W=1", B.words(129, 1), rand_prog(129, 64)),
+              ("W=33", B.words(129, 33), rand_prog(129, 64)),
+              ("W=511", B.words(129, 511), rand_prog(129, 64)),
+              ("S=1024 (128 KiB tile)", B.words(1024, 512),
+               rand_prog(1024, 256)),
+              ("S=4096 (tile in out)", B.words(4096, 64),
+               rand_prog(4096, 64))]
     err = 0
     for name, regs, prog in cases:
         o1, c1 = kbitmap.bitmap_vm(regs, prog)
@@ -748,37 +797,42 @@ def vm_and_xor_phases(B: Bench, K, bitmap_inputs, launches):
         #                                    popcount + sum per word
         out = torch.empty_like(regs)
         cnt = torch.zeros(S, dtype=torch.int32, device=dev)
-        ms, cold = B.launch_ms(B.lib.bitmap_vm_launch, regs.data_ptr(),
-                               prog.data_ptr(), out.data_ptr(),
-                               cnt.data_ptr(), S, W, P)
+        t = B.launch_ms(B.lib.bitmap_vm_launch, regs.data_ptr(),
+                        prog.data_ptr(), out.data_ptr(), cnt.data_ptr(), S, W,
+                        P)
         wrapper = cuda_ms(torch, lambda: kbitmap.bitmap_vm(regs, prog))
         plain = cuda_ms(torch, lambda: kref.bitmap_vm_ref(regs, prog), 5)
         bound, by = B.bound(nbytes, nops)
-        return dict(S=S, W=W, P=P, ms=ms, cold_ms=cold, wrapper_ms=wrapper,
-                    plain_ms=plain, bound_ms=bound, bound_by=by)
+        return dict(S=S, W=W, P=P, **t, wrapper_ms=wrapper, plain_ms=plain,
+                    bound_ms=bound, bound_by=by)
 
     for name, regs, prog in cases:
         r = vm_row(regs, prog)
         log(f"[kernels] bitmap_vm {name} S={r['S']} W={r['W']} P={r['P']}: "
-            f"{r['ms']:.5f} ms (cold L2 {r['cold_ms']:.5f} ms, wrapper "
-            f"{r['wrapper_ms']:.5f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, bound "
-            f"{r['bound_ms']:.6f} ms by {r['bound_by']}), bit-exact")
+            f"device {r['ms']:.5f} ms (events {r['event_ms']:.5f} ms, cold L2 "
+            f"{r['cold_ms']:.5f} ms, wrapper {r['wrapper_ms']:.5f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms by "
+            f"{r['bound_by']}, {r['bound_ms'] / r['ms']:.2%} of it), "
+            "bit-exact")
         rows.append((name, r))
     main = rows[0][1]                   # the first wave's own program
+    rnd = dict(rows)["random"]
     vm = {"name": "bitmap_vm", "route": "cuda",
           "source": "src/repro_torch/kernels/csrc/bitmap_vm.cu",
           "replaces": "src/repro/kernels/bitmap.py:142",
           "launches": launches["k1"]["bitmap_vm"], "max_abs_err": err,
-          "ms": main["ms"], "cold_ms": main["cold_ms"],
-          "plain_ms": main["plain_ms"],
+          "ms": main["ms"], "event_ms": main["event_ms"],
+          "cold_ms": main["cold_ms"], "plain_ms": main["plain_ms"],
           "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
           "library_ms": None,
-          "shape": [main["S"], main["W"], main["P"]]}
+          "shape": [main["S"], main["W"], main["P"]],
+          "random_256x4096_P128": {k: rnd[k] for k in (
+              "ms", "event_ms", "bound_ms")}}
 
     # ---- xor_delta: the kernel's scalar branch (a width that is not a
     # multiple of 4 words; inputs 4 bytes off 16-byte alignment), then the
-    # vector branch at (N, 64) words = 256-byte records
+    # vector branch at the k3 path's largest and median launch shapes and at
+    # (65536, 64) words = 256-byte records
     err = 0
     N, W = 4096, RECORD // 4
     flat_p, flat_c = B.words(N * W + 1), B.words(N * W + 1)
@@ -795,54 +849,61 @@ def vm_and_xor_phases(B: Bench, K, bitmap_inputs, launches):
                                  f"{tuple(p.shape)} disagrees: {e}")
         log(f"[kernels] xor_delta scalar branch {name} {tuple(p.shape)}: "
             "bit-exact")
+    by_size = sorted(delta_shapes, key=lambda s: (s[0] * s[1], s))
+    shapes = {"path largest": by_size[-1],
+              "path median": by_size[len(by_size) // 2],
+              "65536": (65536, RECORD // 4)}
     xrows = {}
-    for N in (4096, 65536):
-        p, c = B.words(N, RECORD // 4), B.words(N, RECORD // 4)
-        c[::2] = p[::2] ^ (B.words(N // 2, RECORD // 4) & 0x0F)
+    for name, (N, W) in shapes.items():
+        p, c = B.words(N, W), B.words(N, W)
+        c[::2] = p[::2] ^ (B.words((N + 1) // 2, W) & 0x0F)
         d1, n1 = kdelta.xor_delta(p, c)
         d2, n2 = kref.xor_delta_ref(p, c)
         torch.cuda.synchronize()
         e = max(B.err(d1, d2), B.err(n1, n2))
         if e:
-            raise AssertionError(f"xor_delta N={N} disagrees: {e}")
+            raise AssertionError(f"xor_delta {name} ({N}, {W}) disagrees: {e}")
         d, n = torch.empty_like(p), torch.empty(N, dtype=torch.int32,
                                                  device=dev)
-        ms, cold = B.launch_ms(B.lib.xor_delta_launch, p.data_ptr(),
-                               c.data_ptr(), d.data_ptr(), n.data_ptr(), N,
-                               RECORD // 4, 1)
+        vec = int(W % 4 == 0)
+        t = B.launch_ms(B.lib.xor_delta_launch, p.data_ptr(), c.data_ptr(),
+                        d.data_ptr(), n.data_ptr(), N, W, vec)
         wrapper = cuda_ms(torch, lambda: kdelta.xor_delta(p, c))
         plain = cuda_ms(torch, lambda: kref.xor_delta_ref(p, c))
-        lib_ms = cuda_ms(torch, lambda: torch.bitwise_xor(p, c))
-        bound, by = B.bound(3 * N * (RECORD // 4) * 4 + 4 * N,
-                            2 * N * (RECORD // 4))
-        xrows[N] = dict(ms=ms, cold_ms=cold, plain_ms=plain,
-                        library_ms=lib_ms, bound_ms=bound, bound_by=by)
-        log(f"[kernels] xor_delta N={N} W={RECORD // 4}: {ms:.5f} ms (cold L2 "
-            f"{cold:.5f} ms, wrapper "
-            f"{wrapper:.5f} ms, plain {plain:.5f} ms, torch.bitwise_xor "
-            f"{lib_ms:.5f} ms, bound "
-            f"{xrows[N]['bound_ms']:.6f} ms by {xrows[N]['bound_by']}), "
-            "bit-exact")
+        half = cuda_ms(torch, lambda: torch.bitwise_xor(p, c, out=d), 200)
+        half_dev = B.graph_ms(lambda: torch.bitwise_xor(p, c, out=d))
+        bound, by = B.bound(3 * N * W * 4 + 4 * N, 2 * N * W)
+        xrows[name] = dict(**t, plain_ms=plain, library_ms=None,
+                           xor_half_ms=half_dev, xor_half_event_ms=half,
+                           bound_ms=bound, bound_by=by, shape=[N, W])
+        log(f"[kernels] xor_delta {name} ({N}, {W}): device {t['ms']:.5f} ms "
+            f"(events {t['event_ms']:.5f} ms, cold L2 {t['cold_ms']:.5f} ms, "
+            f"wrapper {wrapper:.5f} ms, plain {plain:.5f} ms, "
+            f"torch.bitwise_xor alone (the XOR half) device {half_dev:.5f} "
+            f"ms, events {half:.5f} ms; bound {bound:.6f} ms by {by}, "
+            f"{bound / t['ms']:.2%} of it), bit-exact")
         err = max(err, e)
-    x = xrows[65536]
+    x = xrows["path median"]
     xd = {"name": "xor_delta", "route": "cuda",
           "source": "src/repro_torch/kernels/csrc/xor_delta.cu",
           "replaces": "src/repro/kernels/deltaenc.py:47",
           "launches": launches["k3"]["xor_delta"], "max_abs_err": err,
-          "ms": x["ms"], "cold_ms": x["cold_ms"], "plain_ms": x["plain_ms"],
-          "bound_ms": x["bound_ms"],
-          "bound_by": x["bound_by"], "library_ms": x["library_ms"],
-          "shape": [65536, RECORD // 4]}
+          **x, "path_largest": xrows["path largest"],
+          "n65536": xrows["65536"]}
     return [vm, xd]
 
 
 def minhash_phase(B: Bench, K, path_inputs, launches):
     """minhash against its plain version, bit-exact: the sh path's own CSR,
-    empty rows, R = 0, entries whose hashes wrap mod 2^32 and mins >= 2^31
-    (a signed min would pick another word), -1 entries, and L = 40 (five
-    hash groups of 8, the last one full); then timed at the path's shape."""
+    empty rows, R = 0 and R = 1, R not a multiple of the rows a block takes,
+    one row of 100,000 entries among rows of degree 0-3, entries whose
+    hashes wrap mod 2^32 and mins >= 2^31 (a signed min would pick another
+    word), -1 entries, L = 1 and L = 40 (five hash groups of 8, the last one
+    full), and long rows at mean degrees from 96 to 1536; then
+    timed at the path's shape."""
     torch, dev = B.torch, B.dev
     M32 = 0xFFFFFFFF
+    kmh = K.minhash
 
     def params(a, b):
         def i32(x):
@@ -860,6 +921,8 @@ def minhash_phase(B: Bench, K, path_inputs, launches):
 
     fam8 = params(*K.ops.hash_family(8, 0))
     deg = torch.randint(0, 40, (65536,), generator=B.gen)
+    skew = torch.randint(0, 4, (65537,), generator=B.gen)
+    skew[30001] = 100_000
     p_wrap, c_wrap = csr(torch.full((4096,), 16), 2**30, 2**31 - 1)
     p_pad, c_pad = csr(torch.full((4096,), 8), 0, 64)
     c_pad[::3] = -1
@@ -867,13 +930,26 @@ def minhash_phase(B: Bench, K, path_inputs, launches):
              ("empty rows", *csr([0, 3, 0, 0, 5, 0], 0, 100), *fam8),
              ("R=0", torch.zeros(1, dtype=torch.int64, device=dev),
               torch.zeros(0, dtype=torch.int32, device=dev), *fam8),
+             ("R=1", *csr([23], 0, 2**31 - 1), *fam8),
+             ("R=4133 (not a multiple of a block's 256 rows)",
+              *csr(torch.full((4133,), 16), 0, 64), *fam8),
+             ("skewed: one row of 100,000 among degree 0-3",
+              *csr(skew, 0, 2**31 - 1), *fam8),
              ("wrap, mins >= 2^31", p_wrap, c_wrap,
               *params([1, 3, 0x9E3779B1], [2**31 + 5, 2**32 - 100, 2**31])),
              ("-1 entries", p_pad, c_pad, *fam8),
+             ("L=1", *csr(deg, 0, 64), *params(*K.ops.hash_family(1, 3))),
              ("L=40", *csr(deg, 0, 64), *params(*K.ops.hash_family(40, 2)))]
+    # longer rows, one set with L = 40
+    for m in (96, 192, 384, 768, 1536):
+        long_rows = csr(torch.randint(0, 2 * m + 1, (2048,), generator=B.gen),
+                        0, 2**31 - 1)
+        fam = params(*K.ops.hash_family(40, 4)) if m == 384 else fam8
+        cases.append((f"mean degree {m}, L={fam[0].numel()}", *long_rows,
+                      *fam))
     err = 0
     for name, ptr, col, a, b in cases:
-        o1 = K.minhash.minhash(ptr, col, a, b)
+        o1 = kmh.minhash(ptr, col, a, b)
         o2 = K.ref.minhash_csr_ref(ptr, col, a, b)
         torch.cuda.synchronize()
         e = B.err(o1, o2)
@@ -889,20 +965,21 @@ def minhash_phase(B: Bench, K, path_inputs, launches):
     ptr, col, a, b = path_inputs
     R, L, nnz = ptr.numel() - 1, a.numel(), col.numel()
     out = torch.empty((L, R), dtype=torch.int32, device=dev)
-    ms, cold = B.launch_ms(B.lib.minhash_launch, ptr.data_ptr(),
-                           col.data_ptr(), a.data_ptr(), b.data_ptr(),
-                           out.data_ptr(), R, L)
-    wrapper = cuda_ms(torch, lambda: K.minhash.minhash(ptr, col, a, b))
+    t = B.launch_ms(B.lib.minhash_launch, ptr.data_ptr(), col.data_ptr(),
+                    a.data_ptr(), b.data_ptr(), out.data_ptr(), R, L)
+    wrapper = cuda_ms(torch, lambda: kmh.minhash(ptr, col, a, b))
     plain = cuda_ms(torch, lambda: K.ref.minhash_csr_ref(ptr, col, a, b), 5)
     bound, by = B.bound(8 * (R + 1) + 4 * nnz + 4 * L * R, 3 * L * nnz)
-    log(f"[kernels] minhash path R={R} nnz={nnz} L={L}: {ms:.5f} ms (cold L2 "
-        f"{cold:.5f} ms, wrapper {wrapper:.5f} ms, plain {plain:.4f} ms, "
-        f"bound {bound:.6f} ms by {by}; no single PyTorch call)")
+    log(f"[kernels] minhash path R={R} nnz={nnz} L={L}: device "
+        f"{t['ms']:.5f} ms (events "
+        f"{t['event_ms']:.5f} ms, cold L2 {t['cold_ms']:.5f} ms, wrapper "
+        f"{wrapper:.5f} ms, plain {plain:.4f} ms, bound {bound:.6f} ms by "
+        f"{by}, {bound / t['ms']:.2%} of it; no single PyTorch call)")
     return {"name": "minhash", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/minhash.cu",
             "replaces": "src/repro/kernels/minhash.py:59",
             "launches": launches["sh"]["minhash"], "max_abs_err": err,
-            "ms": ms, "cold_ms": cold, "plain_ms": plain, "bound_ms": bound,
+            **t, "plain_ms": plain, "bound_ms": bound,
             "bound_by": by, "library_ms": None, "shape": [R, nnz, L]}
 
 
@@ -941,21 +1018,26 @@ def and_popcount_phase(B: Bench, K, path_inputs, launches):
         out = torch.empty_like(bms)
         cnt = torch.empty(n, dtype=torch.int32, device=dev)
         stride = w if row.shape[0] == n and n != 1 else 0
-        ms, cold = B.launch_ms(B.lib.and_popcount_launch, bms.data_ptr(),
-                               row.data_ptr(), out.data_ptr(), cnt.data_ptr(),
-                               n, w, stride, int(w % 4 == 0))
+        t = B.launch_ms(B.lib.and_popcount_launch, bms.data_ptr(),
+                        row.data_ptr(), out.data_ptr(), cnt.data_ptr(),
+                        n, w, stride, int(w % 4 == 0))
         wrapper = cuda_ms(torch, lambda: K.bitmap.and_popcount(bms, row))
         plain = cuda_ms(torch, lambda: K.ref.and_popcount_ref(bms, row))
-        lib_ms = cuda_ms(torch, lambda: torch.bitwise_and(bms, row))
+        half = cuda_ms(torch, lambda: torch.bitwise_and(bms, row, out=out),
+                       200)
+        half_dev = B.graph_ms(lambda: torch.bitwise_and(bms, row, out=out))
         bound, by = B.bound(4 * (2 * n * w + row.shape[0] * w + n), 3 * n * w)
-        timed[name] = dict(ms=ms, cold_ms=cold, plain_ms=plain,
-                           library_ms=lib_ms, bound_ms=bound, bound_by=by,
+        timed[name] = dict(**t, plain_ms=plain, library_ms=None,
+                           and_half_ms=half_dev, and_half_event_ms=half,
+                           bound_ms=bound, bound_by=by,
                            shape=[n, w, int(row.shape[0])])
         log(f"[kernels] and_popcount {name} {tuple(bms.shape)} & "
-            f"{tuple(row.shape)}: {ms:.5f} ms (cold L2 {cold:.5f} ms, "
+            f"{tuple(row.shape)}: device {t['ms']:.5f} ms (events "
+            f"{t['event_ms']:.5f} ms, cold L2 {t['cold_ms']:.5f} ms, "
             f"wrapper {wrapper:.5f} ms, plain {plain:.5f} ms, "
-            f"torch.bitwise_and {lib_ms:.5f} ms, bound {bound:.6f} ms by "
-            f"{by})")
+            f"torch.bitwise_and alone (the AND half) device {half_dev:.5f} "
+            f"ms, events {half:.5f} ms; bound {bound:.6f} ms by {by}, "
+            f"{bound / t['ms']:.2%} of it)")
     m = timed["path candidates_batch"]
     return {"name": "and_popcount", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/and_popcount.cu",
@@ -1018,10 +1100,10 @@ def main() -> int:
         args, torch, dev, T, eng_mod, K, chain)
     del chain
     free("sh")
-    launches["k3"] = main_path_k3(args, torch, dev, T, K)
+    launches["k3"], delta_shapes = main_path_k3(args, torch, dev, T, K)
     free("k3")
     B = Bench(torch, dev)
-    kernels = vm_and_xor_phases(B, K, bitmap_inputs, launches)
+    kernels = vm_and_xor_phases(B, K, bitmap_inputs, delta_shapes, launches)
     kernels.append(minhash_phase(B, K, mh_inputs, launches))
     kernels.append(and_popcount_phase(B, K, ap_inputs, launches))
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all; peak device "

@@ -320,3 +320,40 @@ def test_and_popcount_batch_bad_row_raises():
             rops.and_popcount_batch(bms, row)
         with pytest.raises(ValueError, match="row must be"):
             tops.and_popcount_batch(bms, row, device=CPU)
+
+
+# ------------------------------- the chip run's edge cases on the plain path
+@pytest.mark.parametrize("case", ["skewed", "R=1"])
+def test_minhash_plain_edge_cases_match_reference(case):
+    """The shapes the chip run holds the kernel at that no test above
+    covers, small enough for the reference: a long row among short ones,
+    and one row."""
+    rng = np.random.default_rng(5)
+    L = 8
+    if case == "R=1":
+        rows = [rng.integers(0, 64, 30).tolist()]
+    else:
+        rows = [rng.integers(0, 64, int(rng.integers(0, 4))).tolist()
+                for _ in range(200)]
+        if case == "skewed":
+            rows[77] = rng.integers(0, 2**31 - 1, 5000).tolist()
+    indptr, col = _csr(rows)
+    a, b = rops.hash_family(L, seed=3)
+    want = rops.minhash_csr(indptr, col, a, b)
+    np.testing.assert_array_equal(
+        tops.minhash_csr(indptr, col, a, b, device=CPU), want)
+
+
+@pytest.mark.parametrize("S,W,P", [(6, 1, 5), (33, 33, 40), (17, 511, 1500)])
+def test_bitmap_vm_plain_edge_cases_match_reference(S, W, P):
+    """W = 1, 33 and 511, P = 1500 (three program tiles of the kernel), and
+    instructions whose dst is their own lhs or rhs."""
+    rng = np.random.default_rng(S + W + P)
+    regs = rng.integers(0, 2**32, size=(S, W), dtype=np.uint32)
+    prog = _random_prog(rng, S, P)
+    prog[::3, 1] = prog[::3, 2]         # dst == lhs
+    prog[1::3, 1] = prog[1::3, 3]       # dst == rhs
+    ro, rc = rref.bitmap_vm_ref(jnp.asarray(regs), jnp.asarray(prog))
+    to, tc = tops.bitmap_vm_batch(regs, prog, device=CPU)
+    np.testing.assert_array_equal(to, np.asarray(ro))
+    np.testing.assert_array_equal(tc, np.asarray(rc))

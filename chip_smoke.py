@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of RStore on one NVIDIA H100.
 
-    python3 chip_smoke.py [--seed N] [--base-log2 20] [--versions 64]
+    python3 chip_smoke.py [--seed N] [--base-log2 17] [--versions 64]
+        [--k3-base-log2 16] [--k3-versions 32] [--ops-base-log2 20]
+        [--ops-versions 64]
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``,
 then:
 
 1. k=1 main path: the default ``RStoreConfig()`` over a ``ShardedKVS`` of four
-   ``ShardedDeviceKVS`` tables on the card.  A seeded A-family chain (2^20
+   ``ShardedDeviceKVS`` tables on the card.  A seeded A-family chain (2^17
    base records of 256 bytes, 64 versions, 5% of live records touched per
-   version, 90/5/5 modify/insert/delete) goes in through ``rs.writer()``
+   version, 90/5/5 modify/insert/delete; the depth is cut, see below) goes
+   in through ``rs.writer()``
    sessions; four waves of 64 mixed queries come out through
    ``StoreQueryEngine.serve``.  Every answer is checked against a plain dict
    oracle kept while the data was generated.
@@ -26,8 +29,20 @@ then:
    posting lists.
 3. k=3 main path (§3.4 sub-chunk compression): 2^16 base records, 32
    versions, bounded payload changes (p_d = 0.1), ``rs.build()`` and one
-   checked 64-query wave.
-4. Kernel phases: each kernel against its plain PyTorch version on the card,
+   checked 64-query wave; then ``retain(keep_last(16))`` and ``compact()``,
+   a full rebuild at k>1 (the delta kernel again), and a second wave.
+4. ops main path, the store's operational layer: an A-family chain of 2^20
+   base records and 64 versions whose payloads carry two attributes (f0,
+   f1 = a tenant id), ingested by 4 clients through an ``IngestGateway``
+   and its ``BackgroundFlusher``, into ``make_sharded_backend``'s stack
+   (4 shards × 2 device-table replicas, a 256 MiB ``CachingKVS`` on top);
+   two secondary indexes; checked ``where`` waves (one bitmap_vm launch
+   each): at versions 1 and 2 cold and warm, ``Q.evolution`` twice and
+   ``prefetch_evolution``, at the late targets; one replica of every shard
+   killed, failover, a write, ``RecoveryManager`` rebuilds; retention and a
+   compaction pass.  k1 and sh run at 2^17 base records (cut from 2^20) so
+   that the whole run fits its time; ops keeps 2^20.
+5. Kernel phases: each kernel against its plain PyTorch version on the card,
    bit-exact, at the shapes the main paths gave it and at the shapes named
    below, with device times (a CUDA graph of 200 launches) and host-launched
    CUDA-event times beside the bound.
@@ -68,6 +83,19 @@ L2_FLUSH_BYTES = 256 << 20
 # integer word operations.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_WORD_OPS_PER_S = 67e12
+# The ops path's attributes (``Chain(attrs=True)``): f0's values, the
+# reference's default ``DatasetSpec.attr_cardinality``, and the key bits
+# below a tenant id (f1 = pk >> 12: 4,096 keys a tenant).
+ATTR_CARDINALITY = 256
+TENANT_SHIFT = 12
+# The ops path's chunk cache budget (the top of its backend stack), a fifth
+# of its 1.3 GB store.  A where wave at the late versions gathers more than
+# it holds, and so does prefetch_evolution's lineage walk: both evict.  The
+# repeated (warm) wave runs at the two versions after the root, whose chunks
+# fit.
+CACHE_BYTES = 256 << 20
+# The versions of the ops path's warm wave (``Chain(early=...)``).
+HOT_VERSIONS = (1, 2)
 
 
 def log(*a) -> None:
@@ -87,33 +115,53 @@ class Chain:
     """A seeded A-family chain (linear, ``pct`` of live records touched per
     version, 90/5/5 modify/insert/delete) plus the dict oracle: the full
     contents of each target version and the history of each tracked key,
-    both recorded while the chain is generated, before any ingest."""
+    both recorded while the chain is generated, before any ingest.
+
+    With ``attrs`` every payload's first 8 bytes are two little-endian
+    uint32 attributes in ``DatasetSpec(attr_fields=2)``'s layout (what
+    ``datagen_extractor(2)`` reads): ``f0`` uniform over [0, 256), the
+    reference's default ``attr_cardinality``, drawn anew for every fresh or
+    modified record; ``f1 = pk >> 12``, a tenant id that stays with its key.
+    The contents of the versions in ``early`` are kept too, beside the
+    targets'."""
 
     def __init__(self, seed: int, n_base: int, n_versions: int,
-                 pct: float = 0.05, p_d=None) -> None:
+                 pct: float = 0.05, p_d=None, attrs: bool = False,
+                 last_is_target: bool = False, early=()) -> None:
         rng = np.random.default_rng(seed)
         self.rng = rng
         self.n_versions = n_versions
         self.targets = sorted(set(int(v) for v in rng.choice(
-            np.arange(n_versions // 2, n_versions), size=4, replace=False)))
+            np.arange(n_versions // 2, n_versions), size=4, replace=False))
+            | ({n_versions - 1} if last_is_target else set()))
         self.track = [int(k) for k in rng.choice(n_base, 32, replace=False)]
-        self.pct, self.p_d = pct, p_d
+        self.early = [v for v in early if v < n_versions]
+        self.pct, self.p_d, self.attrs = pct, p_d, attrs
         self.n_base = n_base
         self.versions: Dict[int, Dict[int, bytes]] = {}
         self.history: Dict[int, List[Tuple[int, bytes]]] = {
             k: [] for k in self.track}
+        self.deleted: Dict[int, int] = {}    # tracked key -> version it died
+        self._columns: Dict[int, tuple] = {}  # where_wave's per-version arrays
         self.ops: List[Tuple] = []           # ("root", recs) | ("commit", ...)
         self.n_records = 0
         self._generate()
 
-    def _fresh(self, n: int) -> List[bytes]:
-        blob = self.rng.integers(0, 256, size=n * RECORD,
-                                 dtype=np.uint8).tobytes()
+    def _fresh(self, keys) -> List[bytes]:
+        n = len(keys)
+        arr = self.rng.integers(0, 256, size=n * RECORD, dtype=np.uint8)
+        if self.attrs:
+            arr = arr.reshape(n, RECORD)
+            f = np.empty((n, 2), dtype="<u4")
+            f[:, 0] = self.rng.integers(0, ATTR_CARDINALITY, size=n)
+            f[:, 1] = np.asarray(keys, dtype=np.int64) >> TENANT_SHIFT
+            arr[:, :8] = f.view(np.uint8)
+        blob = arr.tobytes()
         return [blob[i * RECORD:(i + 1) * RECORD] for i in range(n)]
 
-    def _mutated(self, parents: List[bytes]) -> List[bytes]:
+    def _mutated(self, keys, parents: List[bytes]) -> List[bytes]:
         if self.p_d is None:
-            return self._fresh(len(parents))
+            return self._fresh(keys)
         arr = np.frombuffer(b"".join(parents), dtype=np.uint8).reshape(
             len(parents), RECORD).copy()
         span = max(1, int(RECORD * self.p_d))
@@ -131,7 +179,8 @@ class Chain:
 
     def _generate(self) -> None:
         rng = self.rng
-        state = dict(zip(range(self.n_base), self._fresh(self.n_base)))
+        state = dict(zip(range(self.n_base),
+                         self._fresh(range(self.n_base))))
         self.ops.append(("root", dict(state)))
         self._note(0, state)
         self.n_records = self.n_base
@@ -149,25 +198,38 @@ class Chain:
             dels = sel[n_mod:n_mod + n_del].tolist()
             new = list(range(next_key, next_key + n_ins))
             next_key += n_ins
-            adds = dict(zip(mod, self._mutated([state[k] for k in mod])))
-            adds.update(zip(new, self._fresh(n_ins)))
+            adds = dict(zip(mod, self._mutated(mod, [state[k] for k in mod])))
+            adds.update(zip(new, self._fresh(new)))
             for k in dels:
                 del state[k]
+                if k in self.history:
+                    self.deleted[k] = vid
             state.update(adds)
             keys = np.concatenate([keys[~np.isin(keys, dels)],
                                    np.asarray(new, dtype=np.int64)])
             self.ops.append(("commit", [vid - 1], adds, dels))
             self._note(vid, adds)
             self.n_records += len(adds)
-            if vid in self.targets:
+            if vid in self.targets or vid in self.early:
                 self.versions[vid] = dict(state)
         self.max_key = next_key
 
+    def evolution(self, k: int, first_kept: int = 0
+                  ) -> List[Tuple[int, bytes]]:
+        """``Q.evolution(k)``'s answer once the versions below
+        ``first_kept`` are retired: the copies of ``k`` that some kept
+        version still holds (each lives until the next change or the
+        delete of its key)."""
+        h = self.history[k]
+        ends = [v for v, _ in h[1:]] + [self.deleted.get(k, 1 << 62)]
+        return [c for c, end in zip(h, ends) if end > first_kept]
+
     # ------------------------------------------------------------ queries
-    def wave(self, Q, vid: int, seed: int):
+    def wave(self, Q, vid: int, seed: int, first_kept: int = 0):
         """64 queries at version ``vid``: 1 version, 24 record, 8 records of
         16 keys, 16 ranges of 256 keys, 7 evolution, 4 or_(record, range),
-        4 and_(range, records) — each with its oracle answer."""
+        4 and_(range, records) — each with its oracle answer (evolution's
+        with the versions below ``first_kept`` retired)."""
         rng = np.random.default_rng(seed)
         cur = self.versions[vid]
         key = lambda: int(rng.integers(0, self.max_key))  # noqa: E731
@@ -186,7 +248,7 @@ class Chain:
             lo = key()
             qs.append((Q.range(vid, lo, lo + 255), rng_dict(lo, lo + 255)))
         for k in rng.choice(self.track, 7, replace=False).tolist():
-            qs.append((Q.evolution(k), self.history[k]))
+            qs.append((Q.evolution(k), self.evolution(k, first_kept)))
         for _ in range(4):
             k, lo = key(), key()
             want = rng_dict(lo, lo + 255)
@@ -202,6 +264,76 @@ class Chain:
                        want))
         assert len(qs) == 64
         return [q for q, _ in qs], [w for _, w in qs]
+
+
+    def where_wave(self, Q, vids, seed: int):
+        """64 queries over the attributes of ``Chain(attrs=True)``, spread
+        round-robin over ``vids``: ``where``/``where_range`` on the tenant
+        f1, f0 only under a key range (alone it selects nearly every
+        chunk), ``and_``/``or_``/``not_`` composites and ``count``/
+        ``exists`` over them — each with its answer, the version's contents
+        filtered on the host."""
+        rng = np.random.default_rng(seed)
+        n_tenants = max(1, self.n_base >> TENANT_SHIFT)
+        cols = self._columns
+
+        def columns(v):
+            if v not in cols:
+                cur = self.versions[v]
+                keys = np.fromiter(cur.keys(), dtype=np.int64, count=len(cur))
+                f0 = np.frombuffer(b"".join(p[:4] for p in cur.values()),
+                                   dtype="<u4").astype(np.int64)
+                cols[v] = (cur, keys, f0, keys >> TENANT_SHIFT)
+            return cols[v]
+
+        def rows(cur, keys, mask):
+            return {k: cur[k] for k in keys[mask].tolist()}
+
+        qs, wants = [], []
+        for i in range(64):
+            v = vids[i % len(vids)]
+            cur, keys, f0, f1 = columns(v)
+            t = int(rng.integers(0, n_tenants))
+            x = int(rng.integers(0, ATTR_CARDINALITY))
+            lo = int(rng.integers(0, self.max_key))
+            span = (keys >= lo) & (keys <= lo + 4095)
+            kind = (i // len(vids)) % 8
+            if kind == 0:
+                q, m = Q.where(v, "f1", t), f1 == t
+            elif kind == 1:
+                q = Q.where_range(v, "f1", t, t + 1)
+                m = (f1 >= t) & (f1 <= t + 1)
+            elif kind == 2:
+                q = Q.and_(Q.where(v, "f0", x), Q.range(v, lo, lo + 4095))
+                m = (f0 == x) & span
+            elif kind == 3:
+                q = Q.or_(Q.where(v, "f1", t),
+                          Q.and_(Q.where(v, "f0", x),
+                                 Q.range(v, lo, lo + 4095)))
+                m = (f1 == t) | ((f0 == x) & span)
+            elif kind == 4:
+                q = Q.and_(Q.where(v, "f1", t), Q.range(v, lo, lo + 4095),
+                           Q.not_(Q.where_range(v, "f0", 0, 127)))
+                m = (f1 == t) & span & (f0 >= 128)
+            elif kind == 5:
+                q, m = Q.count(Q.where(v, "f1", t)), f1 == t
+            elif kind == 6:
+                q = Q.exists(Q.and_(Q.where(v, "f0", x),
+                                    Q.range(v, lo, lo + 63)))
+                m = (f0 == x) & (keys >= lo) & (keys <= lo + 63)
+            else:
+                q = Q.count(Q.and_(Q.where_range(v, "f1", t, t + 2),
+                                   Q.range(v, lo, lo + 4095),
+                                   Q.not_(Q.where(v, "f0", x))))
+                m = (f1 >= t) & (f1 <= t + 2) & span & (f0 != x)
+            qs.append(q)
+            if kind in (5, 7):
+                wants.append(int(m.sum()))
+            elif kind == 6:
+                wants.append(bool(m.any()))
+            else:
+                wants.append(rows(cur, keys, m))
+        return qs, wants
 
 
 def ingest(rs, chain: Chain, flush_on_close: bool = True) -> Dict[str, float]:
@@ -496,27 +628,381 @@ def main_path_k3(args, torch, dev, T, K):
         batch = rs.snapshot().execute(qs)
         torch.cuda.synchronize()
         wave_s = time.perf_counter() - t0
+        check_wave(batch, wants, "k3 wave")
+        st = rs.storage_stats()
+        # retention, then compaction: at k>1 the pass is a full rebuild
+        keep = min(16, args.k3_versions // 2)
+        retired = rs.retain(T.keep_last(keep))
+        d0, n0 = kdelta.LAUNCHES, len(delta_inputs)
+        t0 = time.perf_counter()
+        crep = rs.compact()
+        torch.cuda.synchronize()
+        comp_s = time.perf_counter() - t0
+        comp_launches = kdelta.LAUNCHES - d0
+        comp_pairs = sum(sh[0] for sh in delta_inputs[n0:])
+        qs2, wants2 = chain.wave(T.Q, vid, args.seed * 100 + 98,
+                                 first_kept=args.k3_versions - keep)
+        t0 = time.perf_counter()
+        batch2 = rs.snapshot().execute(qs2)
+        torch.cuda.synchronize()
+        wave2_s = time.perf_counter() - t0
         launches = read_launches(K)
     finally:
         kdelta.xor_delta = orig
-    check_wave(batch, wants, "k3 wave")
-    st = rs.storage_stats()
+    check_wave(batch2, wants2, "k3 wave after compaction")
     log(f"[k3] staging {stage_s:.3f} s, build {build_s:.3f} s "
         f"({build_launches} xor_delta launches), wave {wave_s:.4f} s "
         f"({batch.batch.kvs_queries} read round trips, "
         f"{batch.batch.bytes_fetched} bytes gathered); stored chunk bytes "
         f"{st['stored_chunk_bytes']} vs raw unique {st['raw_unique_bytes']}")
-    if launches["xor_delta"] <= 0:
-        raise AssertionError("the k=3 path launched no xor_delta kernel")
+    log(f"[k3] retain(keep_last({keep})) retired {len(retired)} versions; "
+        f"compact(): {comp_s:.3f} s, mode {crep.mode}, {comp_launches} "
+        f"xor_delta launches ({comp_pairs} pairs), stored chunk bytes "
+        f"{crep.stored_bytes_before} -> {crep.stored_bytes_after}, write/"
+        f"delete round trips {crep.write_round_trips}/"
+        f"{crep.delete_round_trips}; wave after it {wave2_s:.4f} s "
+        f"({batch2.batch.kvs_queries} read round trips)")
+    if launches["xor_delta"] <= 0 or comp_launches <= 0:
+        raise AssertionError("the k=3 path (or its compaction) launched no "
+                             "xor_delta kernel")
+    if crep.mode != "rebuild" or vid in retired:
+        raise AssertionError(f"k3 compaction: mode {crep.mode}, target "
+                             f"v{vid} retired")
+    if crep.stored_bytes_after >= crep.stored_bytes_before:
+        raise AssertionError("k3 compaction stored no fewer bytes")
     if st["stored_chunk_bytes"] >= st["raw_unique_bytes"]:
         raise AssertionError("sub-chunk compression stored no fewer bytes")
     by_size = sorted(delta_inputs, key=lambda s: (s[0] * s[1], s))
-    log(f"[k3] launches during build + wave: {json.dumps(launches)}; "
+    log(f"[k3] launches during build + waves + compaction: "
+        f"{json.dumps(launches)}; "
         f"xor_delta input shapes: largest {by_size[-1]}, median "
         f"{by_size[len(by_size) // 2]}, smallest {by_size[0]}, "
         f"{sum(s[0] for s in delta_inputs)} pairs in all")
     log("[k3] every answer equals the dict oracle")
     return launches, delta_inputs
+
+
+def ops_backend(T, dev, seed: int):
+    """The ops path's backend: ``make_sharded_backend``'s stack for
+    ``n_shards=4, replication_factor=2, cache_bytes=CACHE_BYTES`` (a
+    ``CachingKVS`` over a ``ShardedKVS`` of four ``ReplicatedKVS`` groups,
+    each over two ``ShardedDeviceKVS`` tables on the card, write quorum 1),
+    built here from the same parts so that each device table sits behind a
+    ``FaultInjectingKVS`` the replica phase can kill."""
+    tables = [T.FaultInjectingKVS(T.ShardedDeviceKVS(SLOT_BYTES, device=dev),
+                                  seed=seed + j) for j in range(8)]
+    router = T.ShardedKVS([T.ReplicatedKVS(tables[2 * i:2 * i + 2])
+                           for i in range(4)])
+    return T.CachingKVS(router, cache_bytes=CACHE_BYTES), router, tables
+
+
+def check_postings(rs, T) -> None:
+    """Each secondary index is coherent with the layout: it covers exactly
+    the stored chunks, its postings are what its per-chunk record values
+    give, and the ``idx2/`` buckets in the backend decode to the same."""
+    for attr, idx in rs.indexes.items():
+        if set(idx.chunk_record_values) != set(rs._chunk_records):
+            raise AssertionError(f"index {attr}: chunk set != the layout's")
+        want: Dict[int, List[int]] = {}
+        for cid in sorted(idx.chunk_record_values):
+            vals, present = idx.chunk_record_values[cid]
+            for v in np.unique(vals[present]).tolist():
+                want.setdefault(v, []).append(cid)
+        got = {v: p.tolist() for v, p in idx.postings.items()}
+        keys = idx.stored_keys()
+        stored: Dict[int, List[int]] = {}
+        for blob in rs.kvs.multiget(keys):
+            stored.update({v: p.tolist() for v, p in
+                           T.SecondaryIndex.decode_bucket(blob).items()})
+        if not (got == want == stored):
+            raise AssertionError(f"index {attr}: postings incoherent")
+
+
+def main_path_ops(args, torch, dev, T, K):
+    """The store's operational layer on the card: async ingest through an
+    ``IngestGateway``, secondary indexes and their ``where`` waves, the
+    chunk cache (a warm wave, evolution and ``prefetch_evolution``), replica
+    death and recovery, retention and compaction."""
+    from repro_torch.core import ingest as ingest_mod
+    from repro_torch.serve.ingest_gateway import IngestGateway
+    n_base = 1 << args.ops_base_log2
+    chain = Chain(args.seed + 2, n_base, args.ops_versions + 1, attrs=True,
+                  last_is_target=True, early=HOT_VERSIONS)
+    ops, late_op = chain.ops[:-1], chain.ops[-1]
+    log(f"[ops] chain: {n_base} base records, {args.ops_versions} versions "
+        f"through the gateway + 1 written during a replica death, "
+        f"{chain.n_records} stored records, attrs f0 (uniform < "
+        f"{ATTR_CARDINALITY}) and f1 = pk >> {TENANT_SHIFT}, targets "
+        f"{chain.targets}")
+    kvs, router, tables = ops_backend(T, dev, args.seed)
+    rs = T.RStore(T.RStoreConfig(), kvs, device=dev)
+    log(f"[ops] backend: CachingKVS({CACHE_BYTES} bytes) over ShardedKVS of "
+        f"4 ReplicatedKVS groups × 2 ShardedDeviceKVS tables on {dev} "
+        "(make_sharded_backend's stack, each table behind a "
+        "FaultInjectingKVS)")
+    bitmap_inputs = []
+    timers = Timers(torch)
+    orig_vm = K.bitmap.bitmap_vm
+
+    def recording_vm(regs, prog):
+        bitmap_inputs.append((regs.clone(), prog.clone()))
+        return orig_vm(regs, prog)
+
+    def router_rts():
+        st = router.stats
+        return st.n_queries, st.n_put_queries, st.n_delete_queries
+
+    def cache_line(what):
+        cs = rs.cache_stats()
+        log(f"[ops] cache {what}: hit ratio {cs['hit_rate']:.4f}, "
+            f"{cs['n_entries']} entries, {cs['cached_bytes']} bytes, "
+            f"{cs['n_evictions']} evictions, {cs['n_admit_rejected']} "
+            "admissions refused")
+
+    def wave(what, vids, seed, snap=None, max_reads=4, profile=False):
+        """One checked where wave: exactly one bitmap_vm launch, at most
+        ``max_reads`` read round trips below the cache; with ``profile``,
+        under torch.profiler for the device's busy share."""
+        qs, wants = chain.where_wave(T.Q, vids, seed)
+        q0, l0, b0 = router_rts()[0], K.ops.BITMAP_LAUNCHES, K.bitmap.LAUNCHES
+        h0 = kvs.stats.n_cache_hits
+        out = []
+        t0 = time.perf_counter()
+        if profile:
+            busy_s, _, top = device_busy(torch, lambda: out.append(
+                (snap or rs.snapshot()).execute(qs)))
+        else:
+            out.append((snap or rs.snapshot()).execute(qs))
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        batch = out[0]
+        reads = router_rts()[0] - q0
+        check_wave(batch, wants, f"ops {what}")
+        if K.ops.BITMAP_LAUNCHES - l0 != 1 or K.bitmap.LAUNCHES - b0 != 1:
+            raise AssertionError(f"ops {what}: {K.bitmap.LAUNCHES - b0} "
+                                 "bitmap_vm launches, not 1")
+        if reads > max_reads:
+            raise AssertionError(f"ops {what}: {reads} backend read round "
+                                 f"trips > {max_reads}")
+        log(f"[ops] {what} @v{vids}: {dt:.4f} s, {len(qs) / dt:.1f} "
+            f"queries/s, 1 bitmap_vm launch, {reads} backend read round "
+            f"trips, {batch.batch.bytes_fetched} bytes gathered, "
+            f"{kvs.stats.n_cache_hits - h0} cache hits, "
+            f"{batch.batch.records_returned} records")
+        if profile:
+            log(f"[ops] {what}, under torch.profiler: device busy "
+                f"{busy_s:.6f} s ({busy_s / dt:.3%}), idle "
+                f"{1 - busy_s / dt:.3%}; top device ops: {top}")
+
+    K.bitmap.bitmap_vm = recording_vm
+    timers.wrap(T.RStore, "_prepare_flush_writes", "prepare")
+    timers.wrap(T.VersionGraph, "record_version_index_csr", "csr")
+    timers.wrap(ingest_mod, "build_chunk_map", "maps")
+    timers.wrap(T.RStore, "_stage_chunk_writes", "new chunks")
+    timers.wrap(T.SecondaryIndex, "add_chunks", "add_chunks")
+    timers.wrap(T.SecondaryIndex, "remove_chunks", "remove_chunks")
+    timers.wrap(router, "multiput", "multiput")
+    try:
+        zero_launches(K)
+        # ---- ingest: 4 clients in turn through the gateway's flusher
+        gw = IngestGateway(rs)
+        t0 = time.perf_counter()
+        for i, op in enumerate(ops):
+            client = f"client{i % 4}"
+            if op[0] == "root":
+                gw.init_root(client, op[1])
+            else:
+                gw.commit(client, op[1], op[2], op[3])
+        drain = gw.barrier()
+        torch.cuda.synchronize()
+        ingest_s = time.perf_counter() - t0
+        # (storage_stats() would varint-encode every key's posting list:
+        # tens of seconds at this size; the flusher's counters are enough)
+        st = kvs.stats
+        n_in = chain.n_records - len(late_op[2])
+        log(f"[ops] ingest: {ingest_s:.3f} s ({n_in / ingest_s:.0f} "
+            f"records/s) from 4 clients; {st.n_flush_batches} drains "
+            f"(the barrier's: {drain.n_versions} versions, "
+            f"{drain.write_round_trips} write round trips); drain "
+            f"preparation {timers.t.get('prepare', 0.0):.3f} s (CSR "
+            f"{timers.t.get('csr', 0.0):.3f} s, old chunks' maps "
+            f"{timers.t.get('maps', 0.0):.3f} s in "
+            f"{len(timers.calls.get('maps', []))} calls, new chunks "
+            f"{timers.t.get('new chunks', 0.0):.3f} s), multiputs "
+            f"{timers.t.get('multiput', 0.0):.3f} s; write round trips "
+            f"{router.stats.n_put_queries} (router), staleness: max "
+            f"observed lag {st.max_observed_lag} versions, watermarks "
+            f"{json.dumps(rs.flusher.watermarks())}; {rs.n_chunks} chunks, "
+            f"{router.total_stored_bytes()} bytes stored per replica set")
+        if rs.flusher.staleness_lag != 0:
+            raise AssertionError("ops: versions left staged after barrier()")
+        cache_line("after ingest")
+
+        # ---- secondary indexes
+        for attr in ("f0", "f1"):
+            timers.reset()
+            p0 = kvs.stats.n_put_queries
+            t0 = time.perf_counter()
+            idx = rs.create_index(attr, T.datagen_extractor(2))
+            dt = time.perf_counter() - t0
+            log(f"[ops] create_index({attr!r}): {dt:.3f} s (postings "
+                f"{timers.t.get('add_chunks', 0.0):.3f} s), "
+                f"{len(timers.calls.get('multiput', []))} multiput "
+                f"({kvs.stats.n_put_queries - p0} write round trips), "
+                f"{json.dumps(idx.report())}")
+            if len(timers.calls.get("multiput", [])) != 1:
+                raise AssertionError(f"create_index({attr!r}) did not write "
+                                     "in one multiput")
+        check_postings(rs, T)
+
+        # ---- where wave at the two versions after the root, whose chunks
+        # fit the cache (ingest leaves it empty: write-through refreshes only
+        # keys already cached), then the same wave again from the cache
+        late = args.ops_versions
+        vids = chain.targets[:-1]
+        hot = list(chain.early)
+        snap = rs.snapshot()
+        wave("where wave (cold cache)", hot, args.seed * 100 + 75, snap)
+        wave("the same wave again (warm cache)", hot, args.seed * 100 + 75,
+             snap, max_reads=0)
+        cache_line("after the warm wave")
+        # Q.evolution of the tracked keys twice: the second reads only the
+        # cache.  Then prefetch_evolution of each, and the evolution again:
+        # each prefetch also warms whole lineage versions, each more than the
+        # cache holds, and the 32 walks overlap, so their chunks crowd the
+        # keys' own out of the protected segment; the reads after it are
+        # reported, not held to 0.
+        qs = [T.Q.evolution(k) for k in chain.track]
+        want = [[h for h in chain.history[k] if h[0] < late]
+                for k in chain.track]
+        rts = [router_rts()[0]]
+        for what in ("ops evolution", "ops evolution again"):
+            check_wave(snap.execute(qs), want, what)
+            rts.append(router_rts()[0])
+        t0 = time.perf_counter()
+        warmed = [snap.prefetch_evolution(k) for k in chain.track]
+        pre_s = time.perf_counter() - t0
+        rts.append(router_rts()[0])
+        check_wave(snap.execute(qs), want, "ops evolution after prefetch")
+        rts.append(router_rts()[0])
+        reads = np.diff(rts).tolist()
+        log(f"[ops] Q.evolution of {len(chain.track)} tracked keys: "
+            f"{reads[0]} backend read round trips, again {reads[1]}; "
+            f"prefetch_evolution: {pre_s:.3f} s, "
+            f"{sum(w['warmed_keys'] for w in warmed)} keys warmed in "
+            f"{reads[2]} read round trips; then Q.evolution: {reads[3]} "
+            "backend read round trips")
+        cache_line("after prefetch_evolution")
+        if reads[1]:
+            raise AssertionError("ops: the repeated evolution read the "
+                                 f"backend ({reads[1]} round trips)")
+
+        # ---- where wave at the late targets (the last target comes with
+        # the write made during the replica death); it gathers more than
+        # the cache holds
+        wave("where wave at the late targets", vids, args.seed * 100 + 70, snap)
+        cache_line("after the late wave")
+
+        # ---- replicas: one of every group dies; writes land in repair logs
+        groups = router.shards
+        for i in range(4):
+            tables[2 * i].kill()
+        hops0 = [g.stats.n_failovers for g in groups]
+        kvs.clear()                   # so the wave reaches the replicas
+        wave("where wave, one replica of every group dead", hot,
+             args.seed * 100 + 71)
+        hops1 = [g.stats.n_failovers for g in groups]
+        kvs.clear()
+        wave("where wave again, failed over", hot, args.seed * 100 + 72)
+        hops2 = [g.stats.n_failovers for g in groups]
+        log(f"[ops] failover hops per group: first wave "
+            f"{[b - a for a, b in zip(hops0, hops1)]}, second "
+            f"{[b - a for a, b in zip(hops1, hops2)]}")
+        if (any(b - a > 1 for a, b in zip(hops0, hops1)) or hops2 != hops1
+                or hops1 == hops0):
+            raise AssertionError("ops: more than one extra hop per group, "
+                                 "or hops after the first failover")
+        gw.commit("client0", late_op[1], late_op[2], late_op[3])
+        gw.barrier()
+        misses = [g.pending_repairs(0) for g in groups]
+        for i in range(4):
+            tables[2 * i].revive()
+        mgr = T.RecoveryManager(router)
+        t0 = time.perf_counter()
+        reports = [mgr.rebuild(0, shard=i) for i in range(4)]
+        torch.cuda.synchronize()
+        rec_s = time.perf_counter() - t0
+        log(f"[ops] recovery: {rec_s:.3f} s for 4 replicas that missed "
+            f"{misses} writes; round trips {[r.round_trips for r in reports]}"
+            f", keys copied {[r.keys_copied for r in reports]}, stale keys "
+            f"deleted {[r.stale_keys_deleted for r in reports]}")
+        if any(r.round_trips > 4 for r in reports):
+            raise AssertionError("ops: a rebuild took more than 4 round trips")
+        if any(g.live != (True, True) for g in groups):
+            raise AssertionError("ops: a replica is still down after rebuild")
+        kvs.clear()                   # read the rebuilt replicas (preferred)
+        wave("where wave after recovery", chain.targets, args.seed * 100 + 73,
+             profile=True)
+        cache_line("after the wave after recovery")
+
+        # ---- retention and compaction
+        keep = min(16, (args.ops_versions + 1) // 2)
+        retired = rs.retain(T.keep_last(keep))
+        ib0 = sum(i.stored_bytes() for i in rs.indexes.values())
+        timers.reset()
+        r0 = router_rts()
+        g0 = [(g.stats.n_put_queries, g.stats.n_delete_queries)
+              for g in groups]
+        t0 = time.perf_counter()
+        crep = rs.compact()
+        torch.cuda.synchronize()
+        comp_s = time.perf_counter() - t0
+        r1 = router_rts()
+        per_group = [(g.stats.n_put_queries - a, g.stats.n_delete_queries - b)
+                     for g, (a, b) in zip(groups, g0)]
+        ib1 = sum(i.stored_bytes() for i in rs.indexes.values())
+        log(f"[ops] retain(keep_last({keep})) retired {len(retired)} "
+            f"versions; compact(): {comp_s:.3f} s, mode {crep.mode}, "
+            f"{crep.candidates} candidate chunks, {crep.chunks_written} "
+            f"written, {crep.records_rewritten} records rewritten, "
+            f"{crep.records_dropped} dropped (postings: removed "
+            f"{timers.t.get('remove_chunks', 0.0):.3f} s, added "
+            f"{timers.t.get('add_chunks', 0.0):.3f} s); write/delete round "
+            f"trips "
+            f"{r1[1] - r0[1]}/{r1[2] - r0[2]} (router), per group "
+            f"{per_group}; stored chunk bytes {crep.stored_bytes_before} "
+            f"-> {crep.stored_bytes_after}, index bytes {ib0} -> {ib1}; "
+            f"layout epoch {rs.layout_epoch}")
+        if crep.mode != "pass" or any(w > 1 or d > 1 for w, d in per_group):
+            raise AssertionError(f"ops: compaction {crep.mode} took more than "
+                                 "1 write + 1 delete round trip per shard")
+        if crep.stored_bytes_after >= crep.stored_bytes_before:
+            raise AssertionError("ops: compaction stored no fewer bytes")
+        check_postings(rs, T)
+        snap.refresh()
+        kept = [v for v in chain.targets if v not in retired]
+        wave("where wave after compaction (refreshed snapshot)", kept,
+             args.seed * 100 + 74, snap)
+        gone = [v for v in hot + chain.targets if v in retired]
+        for v in gone:
+            try:
+                snap.execute([T.Q.version(v)])
+            except KeyError as e:
+                if "retired" not in str(e):
+                    raise
+            else:
+                raise AssertionError(f"ops: retired version {v} answered")
+        log(f"[ops] retired targets {gone} raise; targets kept {kept}")
+        gw.close()
+        launches = read_launches(K)
+    finally:
+        K.bitmap.bitmap_vm = orig_vm
+        timers.close()
+    if launches["bitmap_vm"] <= 0:
+        raise AssertionError("the ops path launched no bitmap_vm kernel")
+    log(f"[ops] launches: {json.dumps(launches)}")
+    log("[ops] every answer equals the dict oracle")
+    return launches, bitmap_inputs
 
 
 def query_leaves(proj, q) -> List[Tuple[int, List[int]]]:
@@ -740,6 +1226,13 @@ class Bench:
                                      else "operations")
 
 
+def path_launches(launches, kernel: str) -> Dict[str, object]:
+    """A kernel row's launch counts: the sum over the main paths, and each
+    path's own (each read just after its path ran)."""
+    by_path = {p: n[kernel] for p, n in launches.items()}
+    return {"launches": sum(by_path.values()), "launches_by_path": by_path}
+
+
 def vm_and_xor_phases(B: Bench, K, bitmap_inputs, delta_shapes, launches):
     """bitmap_vm and xor_delta against their plain versions, then timed.
     Each time is the kernel alone, launched through its C entry point on
@@ -763,7 +1256,7 @@ def vm_and_xor_phases(B: Bench, K, bitmap_inputs, delta_shapes, launches):
     self_prog[1::4, 1] = self_prog[1::4, 3]         # dst == rhs
     # ---- bitmap_vm: the waves' own programs, then the named shapes; the
     # last is too tall for a shared-memory tile, so the kernel works in out
-    cases = [("wave", r, p) for r, p in bitmap_inputs]
+    cases = list(bitmap_inputs)
     cases += [("random", B.words(256, 4096), rand_prog(256, 128)),
               ("P=0", B.words(256, 4096), rand_prog(256, 0)),
               ("all-zero", torch.zeros((64, 1024), dtype=torch.int32,
@@ -820,14 +1313,17 @@ def vm_and_xor_phases(B: Bench, K, bitmap_inputs, delta_shapes, launches):
     vm = {"name": "bitmap_vm", "route": "cuda",
           "source": "src/repro_torch/kernels/csrc/bitmap_vm.cu",
           "replaces": "src/repro/kernels/bitmap.py:142",
-          "launches": launches["k1"]["bitmap_vm"], "max_abs_err": err,
+          **path_launches(launches, "bitmap_vm"), "max_abs_err": err,
           "ms": main["ms"], "event_ms": main["event_ms"],
           "cold_ms": main["cold_ms"], "plain_ms": main["plain_ms"],
           "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
           "library_ms": None,
           "shape": [main["S"], main["W"], main["P"]],
           "random_256x4096_P128": {k: rnd[k] for k in (
-              "ms", "event_ms", "bound_ms")}}
+              "ms", "event_ms", "bound_ms")},
+          "ops_wave_0": {k: dict(rows)["ops wave 0"][k] for k in (
+              "ms", "event_ms", "cold_ms", "plain_ms", "bound_ms", "S", "W",
+              "P")}}
 
     # ---- xor_delta: the kernel's scalar branch (a width that is not a
     # multiple of 4 words; inputs 4 bytes off 16-byte alignment), then the
@@ -887,7 +1383,7 @@ def vm_and_xor_phases(B: Bench, K, bitmap_inputs, delta_shapes, launches):
     xd = {"name": "xor_delta", "route": "cuda",
           "source": "src/repro_torch/kernels/csrc/xor_delta.cu",
           "replaces": "src/repro/kernels/deltaenc.py:47",
-          "launches": launches["k3"]["xor_delta"], "max_abs_err": err,
+          **path_launches(launches, "xor_delta"), "max_abs_err": err,
           **x, "path_largest": xrows["path largest"],
           "n65536": xrows["65536"]}
     return [vm, xd]
@@ -978,7 +1474,7 @@ def minhash_phase(B: Bench, K, path_inputs, launches):
     return {"name": "minhash", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/minhash.cu",
             "replaces": "src/repro/kernels/minhash.py:59",
-            "launches": launches["sh"]["minhash"], "max_abs_err": err,
+            **path_launches(launches, "minhash"), "max_abs_err": err,
             **t, "plain_ms": plain, "bound_ms": bound,
             "bound_by": by, "library_ms": None, "shape": [R, nnz, L]}
 
@@ -1042,17 +1538,21 @@ def and_popcount_phase(B: Bench, K, path_inputs, launches):
     return {"name": "and_popcount", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/and_popcount.cu",
             "replaces": "src/repro/kernels/bitmap.py:78",
-            "launches": launches["sh"]["and_popcount"], "max_abs_err": err,
+            **path_launches(launches, "and_popcount"), "max_abs_err": err,
             **m}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--base-log2", type=int, default=20)
+    ap.add_argument("--base-log2", type=int, default=17,
+                    help="k1's and sh's base records (their chain's depth, "
+                    "cut from 2^20 so the whole run fits its time)")
     ap.add_argument("--versions", type=int, default=64)
     ap.add_argument("--k3-base-log2", type=int, default=16)
     ap.add_argument("--k3-versions", type=int, default=32)
+    ap.add_argument("--ops-base-log2", type=int, default=20)
+    ap.add_argument("--ops-versions", type=int, default=64)
     args = ap.parse_args()
 
     import torch
@@ -1102,6 +1602,12 @@ def main() -> int:
     free("sh")
     launches["k3"], delta_shapes = main_path_k3(args, torch, dev, T, K)
     free("k3")
+    launches["ops"], ops_bitmap_inputs = main_path_ops(args, torch, dev, T, K)
+    free("ops")
+    bitmap_inputs = ([(f"k1 wave {i}", r, p)
+                      for i, (r, p) in enumerate(bitmap_inputs)]
+                     + [(f"ops wave {i}", r, p)
+                        for i, (r, p) in enumerate(ops_bitmap_inputs)])
     B = Bench(torch, dev)
     kernels = vm_and_xor_phases(B, K, bitmap_inputs, delta_shapes, launches)
     kernels.append(minhash_phase(B, K, mh_inputs, launches))

@@ -29,9 +29,11 @@ Usage::
         Q.record(v3, pk=7),
         Q.range(v3, 10, 19),
         Q.evolution(7),
-        Q.and_(Q.range(v3, 0, 99),       # composite: ONE kernel launch,
-               Q.records(v3, [7, 8])),   # ONE multiget
-        Q.count(Q.range(v3, 0, 99)),     # metadata: zero KVS traffic
+        Q.where(v3, "color", 2),         # needs rs.create_index("color", ...)
+        Q.and_(Q.where(v3, "color", 2),  # composite: ONE kernel launch,
+               Q.where_range(v3, "size", 10, 20)),   # ONE multiget
+        Q.count(Q.where(v3, "color", 2)),    # index-only: zero payload fetch
+        Q.distinct(v3, "color"),             # index-only
     ])
     results[0].value                     # {pk: payload, ...}
     results[0].stats                     # per-query QueryStats
@@ -47,6 +49,15 @@ The write side mirrors this design: :class:`repro_torch.core.ingest.WriteSession
 one ``Backend.multiput`` — under :class:`repro_torch.core.kvs.ShardedKVS`
 both directions cost one round trip per shard touched, however many queries
 or chunks the session carries.
+
+Fault tolerance is below this layer: with replicated shards
+(:class:`repro_torch.core.replica.ReplicatedKVS`, via
+``make_sharded_backend(..., replication_factor=R)``) the session
+``multiget`` survives a replica death mid-workload unchanged — the group
+fails the batch over to a surviving replica (at most one extra read round
+trip per failed-over shard batch) and returns byte-identical results.  Only
+a whole shard group going down surfaces here, as
+:class:`repro_torch.core.replica.BackendUnavailable`.
 
 The bitmap program runs on the snapshot's device (the store's), and so do
 the sub-chunk decodes of a ``k>1`` store.
@@ -65,6 +76,7 @@ from .index import Projections
 from .kvs import Backend
 from .plan import (BatchResult, ExecContext, PlannedQuery, Q, Query,
                    QueryResult, QueryStats, render_plan)
+from .secondary import SecondaryIndex
 from .version_graph import VersionGraph
 
 __all__ = ["Q", "Query", "QueryStats", "QueryResult", "BatchResult",
@@ -93,7 +105,7 @@ class Snapshot:
                  current_epoch: Optional[Callable[[], int]] = None,
                  layout_epoch: Optional[int] = None,
                  current_layout_epoch: Optional[Callable[[], int]] = None,
-                 indexes: Optional[Dict[str, Any]] = None,
+                 indexes: Optional[Dict[str, SecondaryIndex]] = None,
                  repin: Optional[Callable[[], tuple]] = None,
                  staleness_lag: int = 0,
                  chunk_bytes: int = 1 << 16,
@@ -103,13 +115,13 @@ class Snapshot:
         self.device = device
         self.proj = proj
         self.kvs = kvs
-        # committed-but-not-flushed versions at snapshot time.  0 for fresh
-        # (read-your-writes) snapshots; a pinned snapshot reports how far
-        # behind the durable state it runs.
+        # async ingest (core/flusher.py): committed-but-not-durable versions
+        # at snapshot time.  0 for fresh (read-your-writes) snapshots; a
+        # pinned snapshot reports how far behind the durable state it runs.
         # Staged versions are invisible to it — querying one fails loudly.
         self.staleness_lag = int(staleness_lag)
         # attr -> SecondaryIndex serving Q.where / Q.where_range plans
-        self.indexes: Dict[str, Any] = indexes or {}
+        self.indexes: Dict[str, SecondaryIndex] = indexes or {}
         self._vidx = {v: i for i, v in enumerate(graph.versions)}
         # target chunk payload size (ingest config) — explain()'s byte model
         self._chunk_bytes = int(chunk_bytes)
@@ -207,12 +219,12 @@ class Snapshot:
         """Warm the chunk cache with everything ``queries`` would fetch.
 
         A no-op (``{"warmed_keys": 0, ...}``) unless the snapshot's KVS is a
-        chunk-cache layer (``is_cache``; the cache comes in a later slice of
-        this package).  The fill is a normal
-        read-through ``multiget`` — already-cached keys cost nothing, misses
-        arrive in ONE round trip (per shard) and pass the admission rule —
-        so a subsequent ``execute`` of the same queries takes 0 backend read
-        round trips.  Index-only plans warm their chunk maps only.
+        :class:`~repro_torch.core.cache.CachingKVS` layer.  The fill is a
+        normal read-through ``multiget`` — already-cached keys cost nothing,
+        misses arrive in ONE round trip (per shard) and pass the admission
+        rule — so a subsequent ``execute`` of the same queries takes 0
+        backend read round trips.  Index-only plans warm their chunk maps
+        only.
         """
         self._check_fresh()
         if not getattr(self.kvs, "is_cache", False):
@@ -220,6 +232,47 @@ class Snapshot:
         payload_ids, map_only = self._split_ids(self.plan_batch(queries))
         return self._warm(self._fetch_keys(
             (int(c) for c in payload_ids), (int(c) for c in map_only)))
+
+    def prefetch_evolution(self, pk: int, lineage_versions: int = 4
+                           ) -> Dict[str, int]:
+        """Warm the cache for ``Q.evolution(pk)`` by walking VersionGraph
+        paths.
+
+        The base warm set is the evolution query's *planned* candidates
+        (pk's key posting list, minus retention-pruned dead chunks) —
+        exactly what the query fetches, so it runs with 0 backend read
+        round trips afterwards.  On top, the version-tree paths root→leaf
+        are walked to recover the lineage of versions where ``pk`` actually
+        changed (its record copies name their origin versions), and the
+        newest ``lineage_versions`` of those get their version posting
+        lists warmed too — an evolution read is typically followed by
+        version/record reads at the versions where the record changed.
+        """
+        self._check_fresh()
+        if not getattr(self.kvs, "is_cache", False):
+            return {"warmed_keys": 0, "round_trips": 0, "cache": 0}
+        (pq,) = self.plan_batch([Q.evolution(pk)])
+        cids = {int(c) for c in pq.cand}
+
+        # lineage walk: origins of pk's copies, ordered along tree paths
+        store = self.graph.store
+        rids = np.flatnonzero(store.keys() == pk)
+        origin_set = {int(o) for o in store.origin_versions()[rids]}
+        lineage: List[int] = []
+        seen: set = set()
+        for leaf in self.graph.leaves():
+            if self.graph.is_retired(leaf):
+                continue
+            # path_to_root is leaf→root; reverse for chronological order
+            for v in reversed(self.graph.path_to_root(leaf)):
+                if v in origin_set and v not in seen:
+                    seen.add(v)
+                    lineage.append(v)
+        for v in lineage[-lineage_versions:]:
+            vc = self.proj.version_chunks.get(v)
+            if vc is not None:
+                cids.update(int(c) for c in vc)
+        return self._warm(self._fetch_keys(sorted(cids), ()))
 
     def _warm(self, keys: List[str]) -> Dict[str, int]:
         s = self.kvs.stats

@@ -37,6 +37,12 @@ then refuses to observe unflushed deltas).  ``build()`` runs the full offline
 pipeline (sub-chunking when k>1 → partitioning → chunk/map writes →
 projections).
 
+With replicated shards (:class:`repro_torch.core.replica.ReplicatedKVS`)
+the group flush survives a replica death mid-workload unchanged: the one
+``multiput`` per shard lands on every live replica with a write-ack quorum,
+and replicas that missed it are backfilled by read-repair or a
+:class:`repro_torch.core.replica.RecoveryManager` rebuild.
+
 Every device step of both paths — the bitmap program of a read wave and the
 XOR deltas of a ``k>1`` build — runs on the store's ``device`` (the card
 unless the caller asks for the CPU).
@@ -50,10 +56,12 @@ import numpy as np
 
 from ..device import DeviceLike, resolve_device
 from .chunkstore import build_chunk, build_chunk_map
+from .compact import CompactionReport, Compactor, RetentionPolicy
 from .index import Projections
 from .kvs import Backend, InMemoryKVS
 from .online import affected_old_chunks, partition_batch
 from .partition import ALGORITHMS
+from .secondary import AttributeExtractor, SecondaryIndex
 from .api import BatchResult, Q, Snapshot
 from .subchunk import (build_subchunks, build_transformed,
                        compressed_subchunk_sizes)
@@ -94,11 +102,21 @@ class WriteSession:
     wrappers count), and committing after ``close()`` raises.  If the
     ``with`` body raises, the flush is skipped — staged versions stay in
     the delta store and the next flush picks them up.
+
+    With a :class:`~repro_torch.core.flusher.BackgroundFlusher` attached
+    (async ingest) the rules change: any number of sessions may be open
+    concurrently, every ``commit()`` stages at zero round trips into the
+    flusher's active buffer, and durability is the flusher's job
+    (watermarks / ``rs.barrier()``) — ``close()`` does not flush, and an
+    exception in the ``with`` body just closes the session (staged
+    commits may already be durable; there is no per-session abort).
     """
 
-    def __init__(self, rs: "RStore", flush_on_close: bool = True) -> None:
+    def __init__(self, rs: "RStore", flush_on_close: bool = True,
+                 async_mode: bool = False) -> None:
         self._rs = rs
         self._flush_on_close = flush_on_close
+        self._async = async_mode
         self._closed = False
         self.staged: List[int] = []        # vids committed through this session
 
@@ -127,12 +145,17 @@ class WriteSession:
         """Explicit early group flush of everything the store has staged.
 
         On a closed session, or with nothing staged, this is a cheap
-        no-op — zero round trips, no stats noise.  Mid-session it flushes
-        the delta store: the staged-so-far versions become one group
-        commit, the rest of the session a second one."""
+        no-op — zero round trips, no stats noise.  In async mode it is a
+        durability barrier (``rs.barrier()``); in sync mode it flushes the
+        delta store mid-session (the staged-so-far versions become one
+        group commit, the rest of the session a second one)."""
         if self._closed:
             return
         rs = self._rs
+        if self._async:
+            if rs._flusher is not None:
+                rs._flusher.drain()
+            return
         if not rs.pending:
             return
         # bypass the open-writer guard for this deliberate mid-session
@@ -145,10 +168,16 @@ class WriteSession:
             rs._writer = saved
 
     def close(self) -> None:
-        """Group-flush the session (idempotent)."""
+        """Group-flush the session (idempotent).  Async sessions just
+        deregister — drains belong to the flusher's watermarks."""
         if self._closed:
             return
         self._closed = True
+        if self._async:
+            self._rs._async_writers.discard(self)
+            if self._rs._flusher is not None:
+                self._rs._flusher.tick()   # close is a clock event
+            return
         self._rs._writer = None
         if self._flush_on_close:
             self._rs.flush()
@@ -159,7 +188,7 @@ class WriteSession:
         return self
 
     def __exit__(self, exc_type, exc, tb) -> None:
-        if exc_type is not None:
+        if exc_type is not None and not self._async:
             # abort: skip the flush, leave staged versions pending
             self._closed = True
             self._rs._writer = None
@@ -188,8 +217,8 @@ class RStore:
         # bumped on every full build(): existing snapshots' chunk ids then
         # point at repartitioned storage, so they must fail loudly
         self._build_epoch = 0
-        # layout epoch: bumped by compaction in the reference; no pass here
-        # changes it yet, but snapshots carry the guard
+        # bumped by every compaction pass: content is preserved, so open
+        # snapshots re-pin via snapshot.refresh() instead of dying
         self._layout_epoch = 0
         # chunk id -> record ids in *stored order* (chunk maps must preserve
         # the chunk's local record indexing when rebuilt)
@@ -199,9 +228,17 @@ class RStore:
         self._chunk_bytes: Dict[int, int] = {}
         # version id -> (sorted primary keys, record ids in that order);
         # memberships are immutable once committed, so entries never go
-        # stale
+        # stale (memory is bounded by total membership size, same order as
+        # the graph's own materialized memberships)
         self._pk_arrays: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
+        # attr -> SecondaryIndex (see core/secondary.py); every mutation
+        # path below keeps postings coherent inside its own round trips
+        self._indexes: Dict[str, SecondaryIndex] = {}
         self._writer: Optional[WriteSession] = None
+        # async ingest (core/flusher.py): when attached, any number of
+        # sessions may stage concurrently and the flusher owns durability
+        self._flusher = None
+        self._async_writers: set = set()
 
     # ------------------------------------------------------------- sessions
     def writer(self, flush_on_close: bool = True) -> WriteSession:
@@ -209,7 +246,16 @@ class RStore:
         ``flush_on_close=True`` the session group-flushes everything it
         staged on close; ``flush_on_close=False`` keeps the delta-store
         batching (flush only once ``batch_size`` versions accumulated) —
-        the facade wrappers use that to preserve the seed behaviour."""
+        the facade wrappers use that to preserve the seed behaviour.
+
+        With a :class:`~repro_torch.core.flusher.BackgroundFlusher`
+        attached, sessions are concurrent: commits stage at zero round trips
+        and drain together on the flusher's watermarks (``flush_on_close``
+        is moot — close never flushes in async mode)."""
+        if self._flusher is not None:
+            ws = WriteSession(self, flush_on_close=False, async_mode=True)
+            self._async_writers.add(ws)
+            return ws
         if self._writer is not None and not self._writer._closed:
             raise RuntimeError(
                 "another WriteSession is already open on this store; close "
@@ -218,10 +264,40 @@ class RStore:
         self._writer = ws
         return ws
 
-    def barrier(self) -> None:
+    # --------------------------------------------------------- async ingest
+    @property
+    def flusher(self):
+        """The attached :class:`~repro_torch.core.flusher.BackgroundFlusher`,
+        or ``None`` (synchronous ingest)."""
+        return self._flusher
+
+    def attach_flusher(self, **flusher_kw):
+        """Switch to async ingest: attach a
+        :class:`~repro_torch.core.flusher.BackgroundFlusher` (kwargs:
+        ``max_staged_versions`` / ``max_staged_bytes`` /
+        ``max_staged_age`` / ``retry``).  Versions already pending in the
+        delta store are adopted into the active buffer.  Raises if a
+        flusher is already attached or a sync WriteSession is open.
+        Detach with ``flusher.close()`` (drains first)."""
+        from .flusher import BackgroundFlusher
+        if self._flusher is not None:
+            raise RuntimeError("a BackgroundFlusher is already attached")
+        if self._writer is not None and not self._writer._closed:
+            raise RuntimeError(
+                "close the open WriteSession before attaching a "
+                "BackgroundFlusher (its group commit must not be split)")
+        self._flusher = BackgroundFlusher(self, **flusher_kw)
+        return self._flusher
+
+    def barrier(self):
         """Durability barrier: everything committed before the call is
-        durable when it returns (flushes the delta store).  With nothing
-        staged it is a cheap no-op — zero round trips, no stats noise."""
+        durable when it returns.  With a flusher attached this drains
+        both buffers (returns the
+        :class:`~repro_torch.core.flusher.DrainReport`); without one it
+        flushes the delta store.  With nothing staged it is a cheap no-op —
+        zero round trips, no stats noise."""
+        if self._flusher is not None:
+            return self._flusher.drain()
         if self.pending:
             self._check_no_open_writer("barrier()")
             self.flush()
@@ -278,6 +354,8 @@ class RStore:
         self.graph.add_root(vid, rids)
         self._grow_r2c()
         self.pending.append(vid)
+        if self._flusher is not None:
+            self._flusher.on_stage(vid, int(sizes.sum()))
         return vid
 
     def _stage_commit(self, parents: Sequence[int], adds: Dict[int, bytes],
@@ -332,6 +410,8 @@ class RStore:
                                np.concatenate(del_rid_parts))
         self._grow_r2c()
         self.pending.append(vid)
+        if self._flusher is not None:
+            self._flusher.on_stage(vid, int(sizes.sum()))
         return vid
 
     # Back-compat wrappers: each is a one-commit write session that keeps
@@ -354,16 +434,23 @@ class RStore:
             grown[:len(self.r2c)] = self.r2c
             self.r2c = grown
 
+    # ------------------------------------------------------------ chunking
     def _check_no_open_writer(self, what: str) -> None:
         """Misuse is loud: chunking mid-session would split the open
         session's one group commit into several multiputs.  close() clears
-        the writer slot before its own flush, so session closes pass."""
+        the writer slot before its own flush, so session closes pass.
+        Async mode has no per-session group commit to protect — drains
+        batch across open sessions by design, so the guard is moot."""
+        if self._flusher is not None:
+            return
         if self._writer is not None and not self._writer._closed:
             raise RuntimeError(
                 f"{what} during an open WriteSession would split its group "
                 "commit; close the session instead")
 
     def _maybe_flush(self) -> None:
+        if self._flusher is not None:
+            return                    # watermarks own the drain schedule
         if self._writer is not None and not self._writer._closed:
             return                    # an open session group-flushes on close
         if len(self.pending) >= self.config.batch_size:
@@ -374,8 +461,8 @@ class RStore:
                             ) -> List[Tuple[str, bytes]]:
         """Build the physical blobs for ``chunks``, record them in the
         chunk bookkeeping, and return the staged ``(key, blob)`` write list
-        — shared by flush() and build() so the key layout and size
-        accounting can never diverge between the two paths."""
+        — shared by flush(), build(), and the compactor so the key layout
+        and size accounting can never diverge between the three paths."""
         writes: List[Tuple[str, bytes]] = []
         for c in chunks:
             chunk, cmap = build_chunk(
@@ -393,7 +480,12 @@ class RStore:
         """Chunk the pending batch (§4 online path; k=1 only — the paper's
         online algorithm does not cover re-grouping sub-chunks) and commit
         every new chunk + rebuilt map in ONE ``multiput`` (the group
-        commit: one backend write round trip per shard)."""
+        commit: one backend write round trip per shard).  With a
+        :class:`~repro_torch.core.flusher.BackgroundFlusher` attached this
+        is a drain barrier instead (same durability, flusher bookkeeping)."""
+        if self._flusher is not None:
+            self._flusher.drain()
+            return
         self._check_no_open_writer("flush()")
         if not self.pending:
             return
@@ -409,10 +501,11 @@ class RStore:
 
     def _prepare_flush_writes(self, batch: List[int]) -> List[Tuple[str, bytes]]:
         """Online-chunk ``batch`` and stage its physical writes — new
-        chunks and rebuilt old chunk maps — WITHOUT
+        chunks, rebuilt old chunk maps, extended index postings — WITHOUT
         touching the backend.  All in-memory layout state (r2c, proj,
         chunk bookkeeping) is advanced here; the caller owns the one
-        ``multiput`` that makes it durable."""
+        ``multiput`` that makes it durable (flush() immediately, the
+        BackgroundFlusher on its own drain schedule)."""
         placed = self.r2c >= 0
         part = partition_batch(self.graph, batch, placed,
                                self.config.algorithm, self.config.capacity,
@@ -450,6 +543,15 @@ class RStore:
             cmap = build_chunk_map(self.graph, self._chunk_records[cid], nv,
                                    csr)
             writes.append((f"map/{cid}", cmap.to_bytes()))
+        # secondary indexes: extend postings for the batch's new chunks —
+        # dirty idx2/ buckets ride the same group commit
+        if self._indexes:
+            new_chunks = [(c.chunk_id, c.record_ids) for c in part.chunks]
+            for idx in self._indexes.values():
+                idx.add_chunks(new_chunks, self.graph.store.payload)
+                iw, idel = idx.stage_writes()
+                writes.extend(iw)
+                assert not idel, "appending chunks never empties a bucket"
         return writes
 
     def _partitioner(self):
@@ -464,6 +566,11 @@ class RStore:
     def build(self) -> Partitioning:
         """Full offline build (also the k>1 path)."""
         self._check_no_open_writer("build()")
+        if self._flusher is not None:
+            # drain barrier: staged work lands in the OLD layout first, so
+            # a replay from a failed drain can never cross the rebuild and
+            # resurrect superseded keys (a failed drain aborts the build)
+            self._flusher.drain()
         self._build_epoch += 1
         self.pending = []
         cfg = self.config
@@ -506,37 +613,168 @@ class RStore:
         # shrink the chunk count — especially after retention pruning)
         stale = sorted(old_ids - set(self._chunk_records))
         stale_keys = [k for c in stale for k in (f"chunk/{c}", f"map/{c}")]
+        # secondary indexes: recompute postings over the new layout inside
+        # the same group commit; buckets that emptied out (all their values
+        # lived only in retired versions) join the stale-key GC
+        for idx in self._indexes.values():
+            idx.rebuild(self._chunk_records, graph.store.payload)
+            iw, idel = idx.stage_writes()
+            writes.extend(iw)
+            stale_keys.extend(idel)
         self.kvs.multiput(writes)      # one group commit, even for rebuilds
         self.kvs.multidelete(stale_keys)
+        self._notify_layout_change(stale_keys)
         self._flushed_versions = graph.num_versions
         return part
+
+    # -------------------------------------------------- retention/compaction
+    def retain(self, policy: RetentionPolicy) -> List[int]:
+        """Apply a retention policy: versions outside it are *retired* —
+        pruned from the version graph and the version→chunks projection, so
+        queries against them fail loudly.  Their record copies stay in
+        storage as garbage until the next :meth:`compact` pass physically
+        reclaims them.  Returns the newly retired version ids.
+        """
+        self._check_no_open_writer("retain()")
+        if self._flusher is not None:
+            # drain barrier — even with nothing pending a failed drain may
+            # hold prepared writes whose replay must land before retirement
+            self._flusher.drain()
+        elif self.pending:
+            if self.config.auto_flush:
+                self.flush()
+            else:
+                raise RuntimeError(
+                    f"{len(self.pending)} unflushed version(s); retention "
+                    "works on the flushed graph — call flush() first")
+        retained = set(policy.resolve(self.graph))
+        to_retire = [v for v in self.graph.retained_versions()
+                     if v not in retained]
+        if not to_retire:
+            return []
+        self.graph.retire(to_retire)
+        if self.proj is not None:
+            self.proj.drop_versions(to_retire)
+        for v in to_retire:
+            self._pk_arrays.pop(v, None)
+        return to_retire
+
+    def compact(self, **compactor_kw) -> CompactionReport:
+        """Run one background compaction pass (see
+        :class:`~repro_torch.core.compact.Compactor`): rewrite fragmented /
+        low-liveness chunks through the configured partition algorithm in
+        ONE group commit and GC the superseded keys in ONE ``multidelete``
+        — each one backend round trip per shard touched.  Bumps the layout
+        epoch; open snapshots re-pin with ``snapshot.refresh()``.
+
+        Exception: with ``k > 1`` (sub-chunk compression) the pass falls
+        back to a retention-aware full :meth:`build` — the online algorithm
+        cannot re-group sub-chunks — which, like every rebuild, *hard*
+        invalidates open snapshots (``refresh()`` raises; take a new
+        ``snapshot()``)."""
+        return Compactor(self, **compactor_kw).run_pass()
 
     @property
     def layout_epoch(self) -> int:
         return self._layout_epoch
 
+    # --------------------------------------------------- secondary indexes
+    def create_index(self, attr: str, extractor: AttributeExtractor,
+                     n_buckets: int = 16) -> SecondaryIndex:
+        """Register a secondary index on ``attr`` (see
+        :mod:`repro_torch.core.secondary`).  Existing chunks are indexed now
+        (one ``multiput`` of the ``idx2/{attr}/*`` buckets); every later
+        flush / build / compaction keeps the postings coherent inside its
+        own round trips.  Enables ``Q.where(vid, attr, value)`` and
+        ``Q.where_range(vid, attr, lo, hi)`` on snapshots."""
+        if attr in self._indexes:
+            raise ValueError(f"secondary index on {attr!r} already exists")
+        if not self.config.store_payloads:
+            raise RuntimeError(
+                "secondary indexes need store_payloads=True — attribute "
+                "extraction reads record payloads")
+        idx = SecondaryIndex(attr, extractor, n_buckets=n_buckets)
+        if self._chunk_records:
+            idx.add_chunks(sorted(self._chunk_records.items()),
+                           self.graph.store.payload)
+            writes, _ = idx.stage_writes()
+            self.kvs.multiput(writes)
+        self._indexes[attr] = idx
+        return idx
+
+    def drop_index(self, attr: str) -> None:
+        """Unregister the index on ``attr`` and GC its ``idx2/`` keys (one
+        ``multidelete``).  Raises ``KeyError`` if no such index exists."""
+        idx = self._indexes.pop(attr)
+        self.kvs.multidelete(idx.stored_keys())
+
+    @property
+    def indexes(self) -> Dict[str, SecondaryIndex]:
+        return dict(self._indexes)
+
+    # --------------------------------------------------------- cache layer
+    def _cache(self):
+        """The CachingKVS layer, if one tops the backend stack."""
+        return self.kvs if getattr(self.kvs, "is_cache", False) else None
+
+    def _notify_layout_change(self, superseded_keys) -> None:
+        """Layout-epoch hook: ``build()`` / ``compact()`` re-partitioned
+        chunk storage — flush the cache entries the pass superseded, at the
+        same moment open snapshots need ``refresh()`` / re-``snapshot()``.
+        (Rewritten keys are already fresh via write-through; this drops the
+        deleted old layout's keys even if maintenance bypassed the cache.)"""
+        c = self._cache()
+        if c is not None:
+            c.on_layout_epoch(self._build_epoch + self._layout_epoch,
+                              superseded_keys)
+
+    def cache_stats(self) -> Optional[Dict[str, float]]:
+        """Hit-rate / occupancy report of the chunk cache layer; ``None``
+        when the backend stack has no
+        :class:`~repro_torch.core.cache.CachingKVS` on top."""
+        c = self._cache()
+        return None if c is None else c.cache_report()
+
     # ------------------------------------------------------------- queries
     def snapshot(self, mode: str = "fresh") -> Snapshot:
         """Immutable read view of the store (the session API).
 
-        ``mode="fresh"`` (default) is read-your-writes: ``auto_flush=True``
-        (seed behaviour) flushes pending deltas first while
-        ``auto_flush=False`` makes reads strictly side-effect free
-        (unflushed deltas raise — call :meth:`flush` explicitly).
-        ``mode="pinned"`` pins the last flushed state without flushing
-        anything; versions still staged are invisible and the snapshot's
-        ``staleness_lag`` reports how many.
+        ``mode="fresh"`` (default) is read-your-writes: with a
+        :class:`~repro_torch.core.flusher.BackgroundFlusher` attached it
+        drains first, so every committed version is visible.  Without a
+        flusher, ``auto_flush=True`` (seed behaviour) flushes pending deltas
+        first while ``auto_flush=False`` makes reads strictly side-effect
+        free (unflushed deltas raise — call :meth:`flush` explicitly).
+
+        ``mode="pinned"`` pins the last DURABLE state without flushing
+        anything: zero write round trips, bounded staleness.  Versions
+        still staged are invisible (querying one fails loudly) and the
+        snapshot's ``staleness_lag`` reports how many.  After a *failed*
+        drain the in-memory layout is ahead of the durable state, so a
+        pinned snapshot raises until a barrier (or backend recovery)
+        lands the replay.
         """
         if mode not in ("fresh", "pinned"):
             raise ValueError(f"unknown snapshot mode {mode!r} "
                              "(expected 'fresh' or 'pinned')")
         lag = 0
-        if self.pending:
+        if self._flusher is not None:
+            if mode == "fresh":
+                self._flusher.drain()
+            else:
+                if self._flusher.has_unacked_writes:
+                    raise RuntimeError(
+                        "a failed drain left the in-memory layout ahead of "
+                        "the durable state; barrier() (or recover the "
+                        "backend) before taking a pinned snapshot")
+                lag = self._flusher.staleness_lag
+        elif self.pending:
             if mode == "pinned":
                 lag = len(self.pending)
             elif self._writer is not None and not self._writer._closed:
                 # flushing here would split the open session's one group
-                # commit into several multiputs behind the caller's back
+                # commit into several multiputs behind the caller's back —
+                # misuse is loud, like every other mid-session hazard
                 raise RuntimeError(
                     f"{len(self.pending)} unflushed version(s) staged by an "
                     "open WriteSession; close the session (its group flush) "
@@ -553,7 +791,9 @@ class RStore:
                         current_epoch=lambda: self._build_epoch,
                         layout_epoch=self._layout_epoch,
                         current_layout_epoch=lambda: self._layout_epoch,
-                        repin=lambda: (self.proj, {}, self._layout_epoch),
+                        indexes=self._indexes,
+                        repin=lambda: (self.proj, self._indexes,
+                                       self._layout_epoch),
                         staleness_lag=lag,
                         chunk_bytes=self.config.capacity,
                         device=self.device)
@@ -582,7 +822,9 @@ class RStore:
 
     # ------------------------------------------------------------- metrics
     def storage_stats(self) -> Dict[str, object]:
-        """Chunk/index sizes.  ``stored_chunk_bytes`` is tracked incrementally at chunk-write time
+        """Chunk/index sizes (plus a ``"cache"`` sub-report when a
+        :class:`~repro_torch.core.cache.CachingKVS` tops the backend stack).
+        ``stored_chunk_bytes`` is tracked incrementally at chunk-write time
         — the seed multiget every chunk blob just to size it, a full-store
         read per stats call."""
         out = {
@@ -595,12 +837,41 @@ class RStore:
         }
         if self.proj is not None:
             out.update(self.proj.compressed_size())
+        if self._indexes:
+            out["secondary_index_bytes"] = int(sum(
+                idx.stored_bytes() for idx in self._indexes.values()))
+            out["secondary_indexes"] = {
+                attr: idx.report() for attr, idx in self._indexes.items()}
+        cache = self.cache_stats()
+        if cache is not None:
+            out["cache"] = cache
+        out["ingest"] = self._ingest_report()
+        return out
+
+    def _ingest_report(self) -> Dict[str, object]:
+        """The ``storage_stats()["ingest"]`` sub-report: staging state and
+        the flusher counters (which live on the top-of-stack ``KVSStats``
+        so they ride reset/snapshot/restore/merged like every counter)."""
+        fl = self._flusher
         stats = self.kvs.stats
-        out["ingest"] = {"mode": "sync",
-                         "staged_versions": len(self.pending),
-                         "staleness_lag": len(self.pending),
-                         "n_flush_batches": stats.n_flush_batches,
-                         "n_versions_staged": stats.n_versions_staged,
-                         "max_observed_lag": stats.max_observed_lag}
+        out: Dict[str, object] = {
+            "mode": "async" if fl is not None else "sync",
+            "staged_versions": (fl.staged_versions if fl is not None
+                                else len(self.pending)),
+            "staleness_lag": (fl.staleness_lag if fl is not None
+                              else len(self.pending)),
+            "n_flush_batches": stats.n_flush_batches,
+            "n_versions_staged": stats.n_versions_staged,
+            "max_observed_lag": stats.max_observed_lag,
+        }
+        if fl is not None:
+            out.update(
+                staged_bytes=fl.staged_bytes,
+                clock=fl.step,
+                open_sessions=len([w for w in self._async_writers
+                                   if not w._closed]),
+                pending_replay_writes=len(fl._replay),
+                watermarks=fl.watermarks(),
+            )
         return out
 

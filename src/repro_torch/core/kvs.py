@@ -6,7 +6,8 @@ one read round trip, ``multiput`` one write round trip (the §2.3 insight —
 few large requests beat many small ones — applied symmetrically; the write
 side is what the group-committing :class:`~repro_torch.core.ingest.WriteSession`
 rides on), and ``multidelete`` one round trip reclaiming a batch of
-superseded keys (what a rebuild's stale-chunk GC rides on).
+superseded keys (what :class:`~repro_torch.core.compact.Compactor` GC rides
+on).
 Three implementations:
 
 - :class:`InMemoryKVS` — host dict with request/byte counters and a simple
@@ -21,9 +22,25 @@ Three implementations:
   that hash-partitions the keyspace over N inner backends and fans
   ``multiget``/``multiput`` out as one round trip per shard touched.
 
-A missing key raises ``KeyError`` naming the key — a *data-level* miss.
-``scan`` (one round trip returning every stored item) is the recovery
-primitive replica rebuilds ride on.
+The replication & fault-tolerance layer lives in
+:mod:`repro_torch.core.replica` and composes with all of the above through
+the same protocol:
+
+- :class:`~repro_torch.core.replica.ReplicatedKVS` — an N-way replica group
+  (quorum writes, per-batch read failover, read-repair) that slots in as a
+  ``ShardedKVS`` shard via ``make_sharded_backend(...,
+  replication_factor=R)``.
+
+- :class:`~repro_torch.core.replica.FaultInjectingKVS` — a wrapper with a
+  deterministic seeded fault schedule (transient errors, timeouts, hard
+  ``kill()``) raising the
+  :class:`~repro_torch.core.replica.BackendUnavailable` taxonomy, for
+  testing every degraded-mode path.
+
+A missing key raises ``KeyError`` naming the key — a *data-level* miss,
+deliberately distinct from ``BackendUnavailable`` so failover logic never
+re-routes a legitimate miss.  ``scan`` (one round trip returning every
+stored item) is the recovery primitive replica rebuilds ride on.
 """
 from __future__ import annotations
 

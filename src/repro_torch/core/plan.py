@@ -31,7 +31,7 @@ argues is where such systems are won or lost):
    the version graph, zero KVS traffic), ``"index_only"`` (aggregates
    touching indexed attributes — fetch chunk *maps* only, never payload
    blobs: exactness comes from the per-record attribute values the
-   secondary index keeps per chunk — a later slice of this package), or
+   :class:`~repro_torch.core.secondary.SecondaryIndex` keeps per chunk), or
    ``"fetch"`` (everything returning records — payloads + maps in the
    session's single interleaved multiget, post-filtered exactly per
    record).  :func:`answer` is the ONE per-kind switch left in the system.

@@ -12,10 +12,18 @@ over without this package importing it:
   (the version graph's tree deltas);
 - ``r2c``: record id → chunk id;
 - ``chunk_records``: chunk id → record ids in stored order;
-- ``items``: the backend's ``scan()`` — every ``(key, blob)`` it holds.
+- ``items``: the backend's ``scan()`` — every ``(key, blob)`` it holds;
+- ``retired`` (optional): the version ids a retention policy retired;
+- ``layout_epoch`` (optional): how many compaction passes the layout has
+  been through;
+- ``indexes`` (optional): attribute → bucket count of each secondary index,
+  whose ``idx2/`` postings are among ``items``.
 
 The blobs are written to the new store's backend as they are, so the
-result answers the same queries from the same bytes.
+result answers the same queries from the same bytes.  Extractors are code,
+not state: a store with secondary indexes needs ``extractors`` naming one
+per indexed attribute, and each index is re-registered from its persisted
+buckets through :meth:`~repro_torch.core.secondary.SecondaryIndex.load`.
 """
 from __future__ import annotations
 
@@ -26,15 +34,20 @@ import numpy as np
 from .core.index import Projections
 from .core.ingest import RStore, RStoreConfig
 from .core.kvs import Backend
+from .core.secondary import AttributeExtractor, SecondaryIndex
 from .device import DeviceLike
 
 
 def rstore_from_state(state: Dict[str, Any],
                       config: Optional[RStoreConfig] = None,
                       kvs: Optional[Backend] = None,
-                      device: DeviceLike = None) -> RStore:
+                      device: DeviceLike = None,
+                      extractors: Optional[Dict[str,
+                                                AttributeExtractor]] = None,
+                      ) -> RStore:
     """A port :class:`RStore` holding ``state`` (see the module docstring);
-    its backend receives ``state["items"]`` in one ``multiput``."""
+    its backend receives ``state["items"]`` in one ``multiput``, and each
+    secondary index reads its buckets back in one ``multiget``."""
     rs = RStore(config, kvs, device=device)
     store = rs.graph.store
     store.add_batch(np.asarray(state["cks"], dtype=np.int64),
@@ -47,6 +60,10 @@ def rstore_from_state(state: Dict[str, Any],
             rs.graph.add_version(int(vid), [int(p) for p in parents], adds,
                                  dels)
     rs._next_vid = max(rs.graph.versions, default=-1) + 1
+    retired = [int(v) for v in state.get("retired", ())]
+    if retired:
+        rs.graph.retire(retired)
+    rs._layout_epoch = int(state.get("layout_epoch", 0))
     rs.r2c = np.asarray(state["r2c"], dtype=np.int64).copy()
     rs._chunk_records = {int(c): np.asarray(r, dtype=np.int64)
                          for c, r in state["chunk_records"].items()}
@@ -57,4 +74,11 @@ def rstore_from_state(state: Dict[str, Any],
     rs.proj = Projections.build_from_r2c(rs.graph, rs.r2c, rs.n_chunks)
     rs.kvs.multiput(items)
     rs._flushed_versions = rs.graph.num_versions
+    for attr, n_buckets in state.get("indexes", {}).items():
+        if attr not in (extractors or {}):
+            raise KeyError(f"no extractor given for the secondary index on "
+                           f"{attr!r}")
+        rs._indexes[attr] = SecondaryIndex.load(
+            rs.kvs, attr, extractors[attr], rs._chunk_records,
+            store.payload, n_buckets=int(n_buckets))
     return rs

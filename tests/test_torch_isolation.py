@@ -14,6 +14,7 @@ from repro_torch.core import RStore, ShardedDeviceKVS, VersionGraph
 from repro_torch.core.index import Projections
 from repro_torch.core.partition import ShinglePartitioner
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import make_sharded_backend
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 
@@ -27,7 +28,9 @@ def test_port_imports_no_jax_and_no_reference():
     mods = _port_modules()
     for m in ("kernels.ops", "interop", "kernels.minhash",
               "core.partition.shingle", "core.partition.traversal",
-              "core.partition.baselines", "core.query"):
+              "core.partition.baselines", "core.query", "core.datagen",
+              "core.secondary", "core.compact", "core.cache", "core.replica",
+              "core.flusher", "serve.ingest_gateway", "launch.mesh"):
         assert "repro_torch." + m in mods, m
     code = (
         "import importlib, sys\n"
@@ -69,6 +72,7 @@ def _one_version_graph() -> VersionGraph:
     lambda: ShinglePartitioner().partition(_one_version_graph(), 1024),
     lambda: Projections({0: np.array([0])}, {1: np.array([0])},
                         1).candidates_batch([(0, [1])]),
+    lambda: make_sharded_backend(),
 ])
 def test_default_device_is_the_card(entry):
     """With no device given, an entry point asks for CUDA and raises here

@@ -400,21 +400,14 @@ def test_device_kvs_overwrite_and_delete_reuse_slots():
 
 # ------------------------------------------------- modules under the facade
 def _graph_pair(branch, merge, payloads=False, p_d=None, seed=3):
-    from repro.core import datagen
-    g = datagen.generate(datagen.DatasetSpec(
-        n_versions=30, n_base_records=200, branch_prob=branch,
-        merge_prob=merge, payloads=payloads, p_d=p_d, record_size=40,
-        seed=seed))
-    t = T.VersionGraph()
-    t.store.add_batch(g.store.cks, g.store.sizes,
-                      [g.store.payload(r) for r in range(len(g.store))]
-                      if payloads else None)
-    for v in g.versions:
-        if not g.parents[v]:
-            t.add_root(v, g.tree_delta[v].adds)
-        else:
-            t.add_version(v, list(g.parents[v]), g.tree_delta[v].adds,
-                          g.tree_delta[v].dels)
+    """The same dataset from each package's own generator (which
+    ``test_torch_ops_parity`` holds identical)."""
+    spec = dict(n_versions=30, n_base_records=200, branch_prob=branch,
+                merge_prob=merge, payloads=payloads, p_d=p_d, record_size=40,
+                seed=seed)
+    g = R.generate(R.DatasetSpec(**spec))
+    t = T.generate(T.DatasetSpec(**spec))
+    np.testing.assert_array_equal(g.store.cks, t.store.cks)
     return g, t
 
 

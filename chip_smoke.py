@@ -2,8 +2,8 @@
 """Drive the PyTorch port of RStore on one NVIDIA H100.
 
     python3 chip_smoke.py [--seed N] [--base-log2 17] [--versions 64]
-        [--k3-base-log2 16] [--k3-versions 32] [--ops-base-log2 20]
-        [--ops-versions 64]
+        [--k3-base-log2 16] [--k3-versions 32] [--ops-base-log2 19]
+        [--ops-versions 64] [--tr-layers 2]
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``,
 then:
@@ -31,7 +31,7 @@ then:
    versions, bounded payload changes (p_d = 0.1), ``rs.build()`` and one
    checked 64-query wave; then ``retain(keep_last(16))`` and ``compact()``,
    a full rebuild at k>1 (the delta kernel again), and a second wave.
-4. ops main path, the store's operational layer: an A-family chain of 2^20
+4. ops main path, the store's operational layer: an A-family chain of 2^19
    base records and 64 versions whose payloads carry two attributes (f0,
    f1 = a tenant id), ingested by 4 clients through an ``IngestGateway``
    and its ``BackgroundFlusher``, into ``make_sharded_backend``'s stack
@@ -40,9 +40,21 @@ then:
    each): at versions 1 and 2 cold and warm, ``Q.evolution`` twice and
    ``prefetch_evolution``, at the late targets; one replica of every shard
    killed, failover, a write, ``RecoveryManager`` rebuilds; retention and a
-   compaction pass.  k1 and sh run at 2^17 base records (cut from 2^20) so
-   that the whole run fits its time; ops keeps 2^20.
-5. Kernel phases: each kernel against its plain PyTorch version on the card,
+   compaction pass.  k1 and sh run at 2^17 base records and ops at 2^19
+   (cut from 2^20) so that the whole run fits its time.
+5. tr main path, versioned training (``examples/versioned_training.py``):
+   smollm-360m at its published width (d_model 960, 15/5 heads of 64, d_ff
+   2,560, vocab 49,152, tied embeddings), its depth cut from 32 layers to
+   ``--tr-layers``, f32, AdamW, batch 8 x 256 tokens from the synthetic
+   pipeline on the card, deterministic algorithms.  The initial state is
+   committed as an RStore version; a straight run of 20 steps; from the same
+   init 10 steps, a commit, ``xor_delta_stats`` of the params (one launch),
+   a restore that must equal the committed state and 10 more steps that
+   must equal the straight run bit for bit; a fork of 5 steps from the
+   restored checkpoint; a partial restore (one bitmap_vm launch), the
+   evolution of a block, ``retain_last(2)`` with compaction, int8 update
+   compression, and the training launcher's crash and ``--resume``.
+6. Kernel phases: each kernel against its plain PyTorch version on the card,
    bit-exact, at the shapes the main paths gave it and at the shapes named
    below, with device times (a CUDA graph of 200 launches) and host-launched
    CUDA-event times beside the bound.
@@ -88,14 +100,21 @@ PEAK_WORD_OPS_PER_S = 67e12
 # below a tenant id (f1 = pk >> 12: 4,096 keys a tenant).
 ATTR_CARDINALITY = 256
 TENANT_SHIFT = 12
-# The ops path's chunk cache budget (the top of its backend stack), a fifth
-# of its 1.3 GB store.  A where wave at the late versions gathers more than
+# The ops path's chunk cache budget (the top of its backend stack), two
+# fifths of its 0.64 GB store at 2^19 base records.  A where wave at the late versions gathers more than
 # it holds, and so does prefetch_evolution's lineage walk: both evict.  The
 # repeated (warm) wave runs at the two versions after the root, whose chunks
 # fit.
 CACHE_BYTES = 256 << 20
 # The versions of the ops path's warm wave (``Chain(early=...)``).
 HOT_VERSIONS = (1, 2)
+# The tr path: the model (at its published width; its depth is
+# ``--tr-layers``), the batch, the straight run's steps (the crash and
+# restore fall halfway) and the fork's steps.
+TR_ARCH = "smollm-360m"
+TR_BATCH, TR_SEQ = 8, 256
+TR_STEPS = 20
+TR_FORK_STEPS = 5
 
 
 def log(*a) -> None:
@@ -1156,6 +1175,306 @@ def main_path_sh(args, torch, dev, T, eng_mod, K, chain: Chain):
         zip(("candidates_batch", "candidates_range"), ap_inputs))
 
 
+# --------------------------------------------------------------- tr path
+def host_rss_kib() -> int:
+    """Current resident set of this process, KiB (``VmRSS``)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1])
+    return -1
+
+
+def flat_params(torch, TR, params):
+    """Every parameter tensor, flattened and joined in tree order."""
+    return torch.cat([t.reshape(-1) for t in TR.leaves(params)])
+
+
+def equal_trees(torch, TR, a, b) -> bool:
+    la, lb = TR.leaves_with_paths(a), TR.leaves_with_paths(b)
+    return ([p for p, _ in la] == [p for p, _ in lb]
+            and all(x.dtype == y.dtype and torch.equal(x, y)
+                    for (_, x), (_, y) in zip(la, lb)))
+
+
+def main_path_tr(args, torch, dev, K):
+    """Versioned training on the card, after ``examples/versioned_training.py``:
+    smollm-360m at its published width (depth cut to ``--tr-layers``),
+    AdamW, checkpoints committed as RStore versions, a simulated crash,
+    a restore from the store, a bit-identical resume, a fork, partial
+    restore, evolution, retention, update compression, and the training
+    launcher's crash and resume.  Returns the path's launch counts, the
+    bitmap program of its partial restore and the shape of its
+    ``xor_delta_stats`` launch."""
+    import tempfile
+    from repro_torch import tree as TR
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import api as api_mod
+    from repro_torch.core import chunkstore, plan as plan_mod
+    from repro_torch.core import ingest as ingest_mod
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.model import build_model
+    from repro_torch.train import checkpoint as ckmod
+    from repro_torch.train import grad_compress
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_step import init_state, make_train_step
+
+    base = ARCHS[TR_ARCH]
+    cfg = base.__class__(**{**base.__dict__, "n_layers": args.tr_layers,
+                            "dtype": "float32", "remat": "none"})
+    model, opt = build_model(cfg), make_optimizer(cfg, lr=1e-3)
+    step_fn = make_train_step(model, opt)
+    tokens = TR_BATCH * TR_SEQ
+    log(f"[tr] {cfg.name}: d_model {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, {cfg.n_layers} layers (cut from "
+        f"{base.n_layers}), {cfg.param_count()} params, f32, AdamW lr 1e-3; "
+        f"batch {TR_BATCH} x seq {TR_SEQ}")
+    torch.cuda.reset_peak_memory_stats()
+    step_ms: List[float] = []
+
+    def train(state, steps, record=True):
+        losses = []
+        for i in steps:
+            batch = synthetic_batch(cfg, i, TR_BATCH, TR_SEQ, device=dev)
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            torch.cuda.synchronize()
+            if record:
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"tr: non-finite loss {losses}")
+        return state, losses
+
+    timers = Timers(torch)
+    timers.wrap(ckmod, "host_array", "d2h")
+    timers.wrap(ckmod.VersionedCheckpointer, "_delta_of", "delta_of")
+    timers.wrap(ingest_mod.RStore, "_prepare_flush_writes", "chunk_build")
+    timers.wrap(api_mod.Snapshot, "plan_batch", "planning")
+    timers.wrap(chunkstore.StoredChunk, "from_bytes", "parse")
+    timers.wrap(plan_mod, "answer", "decode")
+    timers.wrap(ckmod.VersionedCheckpointer, "_assemble", "assemble")
+    timers.wrap(ckmod, "to_like", "h2d")
+    orig_vm, orig_xor = K.bitmap.bitmap_vm, K.delta.xor_delta
+    vm_inputs, xor_shapes = [], []
+
+    def recording_vm(regs, prog):
+        vm_inputs.append((regs.clone(), prog.clone()))
+        return orig_vm(regs, prog)
+
+    def recording_xor(p, c):
+        xor_shapes.append(tuple(p.shape))
+        return orig_xor(p, c)
+    K.bitmap.bitmap_vm, K.delta.xor_delta = recording_vm, recording_xor
+    torch.use_deterministic_algorithms(True)
+    try:
+        zero_launches(K)
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        state0 = init_state(cfg, opt, gen, dev)
+        state_bytes = sum(t.numel() * t.element_size()
+                          for t in TR.leaves(state0))
+        ckpt = ckmod.VersionedCheckpointer(device=dev)
+        kvs = ckpt.rs.kvs
+        timers.wrap(kvs, "multiput", "multiput")
+        timers.wrap(kvs, "multiget", "multiget")
+        log(f"[tr] state: {len(TR.leaves(state0))} tensors, {state_bytes} "
+            f"bytes (params + mu + nu + step); checkpointer: "
+            f"{ckpt.block_bytes}-byte blocks, RStoreConfig(bottom_up, "
+            f"capacity {ckpt.rs.config.capacity}, batch_size "
+            f"{ckpt.rs.config.batch_size}) on {ckpt.rs.device}")
+
+        def commit(state, parents, tag):
+            timers.reset()
+            n0 = len(ckpt.rs.graph.store)
+            t0 = time.perf_counter()
+            vid = ckpt.commit(state, parents=parents, tag=tag)
+            ckpt.rs.flush()
+            dt = time.perf_counter() - t0
+            t = timers.t
+            log(f"[tr] commit v{vid} ({tag}) + flush: {dt:.3f} s host, "
+                f"{state_bytes / dt / 1e9:.4f} GB/s of state "
+                f"({dt / (state_bytes / 1e9):.3f} s per GB); D2H "
+                f"{t.get('d2h', 0.0):.3f} s, _delta_of without D2H "
+                f"{t.get('delta_of', 0.0) - t.get('d2h', 0.0):.3f} s, group "
+                f"flush: chunk build (zlib) {t.get('chunk_build', 0.0):.3f} s,"
+                f" multiput {t.get('multiput', 0.0):.3f} s; "
+                f"{len(ckpt.rs.graph.store) - n0} blocks added")
+            return vid
+
+        def restore(vid, what):
+            timers.reset()
+            t0 = time.perf_counter()
+            out = ckpt.restore(vid, like=state0)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            t = timers.t
+            assemble = t.get("assemble", 0.0) - t.get("h2d", 0.0)
+            log(f"[tr] restore v{vid} ({what}): {dt:.3f} s host, "
+                f"{dt / (state_bytes / 1e9):.3f} s per GB; planning "
+                f"{t.get('planning', 0.0):.3f} s, multiget "
+                f"{t.get('multiget', 0.0):.3f} s, chunk parse "
+                f"{t.get('parse', 0.0):.3f} s, decompress/answer "
+                f"{t.get('decode', 0.0):.3f} s, assemble {assemble:.3f} s, "
+                f"H2D {t.get('h2d', 0.0):.3f} s")
+            return out
+
+        v0 = commit(state0, (), "init")
+        straight, straight_losses = train(state0, range(TR_STEPS))
+        mid, _ = train(state0, range(TR_STEPS // 2))
+        v_mid = commit(mid, (v0,), f"step{TR_STEPS // 2}")
+        p_init = flat_params(torch, TR, state0["params"])
+        p_mid = flat_params(torch, TR, mid["params"])
+        t0 = time.perf_counter()
+        xs = grad_compress.xor_delta_stats(p_init, p_mid)
+        torch.cuda.synchronize()
+        xs_s = time.perf_counter() - t0
+        del p_init, p_mid
+        log(f"[tr] xor_delta_stats(params at init, params at step "
+            f"{TR_STEPS // 2}): {xs_s:.4f} s host, launch shape "
+            f"{xor_shapes}, changed_word_fraction "
+            f"{xs['changed_word_fraction']!r}, changed_block_fraction "
+            f"{xs['changed_block_fraction']!r}")
+        restored = restore(v_mid, "after the simulated crash")
+        if not equal_trees(torch, TR, restored, mid):          # check 1
+            raise AssertionError("tr: the restore differs from the committed "
+                                 "state")
+        del mid
+        main, resumed_losses = train(restored, range(TR_STEPS // 2, TR_STEPS))
+        if not equal_trees(torch, TR, main, straight):         # check 2
+            raise AssertionError("tr: the resumed run differs from the "
+                                 "straight run")
+        if resumed_losses != straight_losses[TR_STEPS // 2:]:
+            raise AssertionError("tr: the resumed losses differ")
+        del straight
+        log(f"[tr] restored state equals the committed one; the resumed run "
+            f"equals the straight run bit for bit (params, mu, nu, step); "
+            f"losses {straight_losses[0]!r} -> {straight_losses[-1]!r}")
+        v_main = commit(main, (v_mid,), "main")
+        fork = restore(v_mid, "for the fork")
+        fork, _ = train(fork, [10_000 + i for i in range(
+            TR_STEPS // 2, TR_STEPS // 2 + TR_FORK_STEPS)])
+        v_fork = commit(fork, (v_mid,), "fork")
+
+        q0, vm0 = kvs.stats.n_queries, len(vm_inputs)
+        t0 = time.perf_counter()
+        sub = ckpt.restore_tensors(v_main, ["params/embed"])
+        part_s = time.perf_counter() - t0
+        rts = kvs.stats.n_queries - q0
+        want = main["params"]["embed"].cpu().numpy()
+        if (rts != 1 or list(sub) != ["params/embed"]                 # check 3
+                or not np.array_equal(sub["params/embed"], want)):
+            raise AssertionError(f"tr: partial restore: {rts} round trips, "
+                                 f"{list(sub)}")
+        tr_program = vm_inputs[vm0:]
+        t0 = time.perf_counter()
+        evo = ckpt.evolution("params/final_norm", 0)
+        evo_s = time.perf_counter() - t0
+        n_evo = len({bytes(p) for _, p in evo})
+        if n_evo < 3:                                           # check 4
+            raise AssertionError(f"tr: evolution has {n_evo} distinct values")
+        log(f"[tr] restore_tensors(v{v_main}, ['params/embed']): "
+            f"{part_s:.3f} s, {rts} read round trip, "
+            f"{len(tr_program)} bitmap_vm launch; evolution of "
+            f"params/final_norm block 0: {len(evo)} versions, {n_evo} "
+            f"distinct values, {evo_s:.3f} s")
+        st = ckpt.storage_stats()
+        log(f"[tr] storage: {st['n_chunks']} chunks, stored chunk bytes "
+            f"{st['stored_chunk_bytes']}, raw unique bytes "
+            f"{st['raw_unique_bytes']} (stored/raw "
+            f"{st['stored_chunk_bytes'] / st['raw_unique_bytes']:.4f}), "
+            f"{ckpt.rs.graph.num_versions} versions, "
+            f"{len(ckpt.rs.graph.store)} blocks held")
+        t0 = time.perf_counter()
+        rep = ckpt.retain_last(2)
+        ret_s = time.perf_counter() - t0
+        log(f"[tr] retain_last(2): {ret_s:.3f} s; compaction mode "
+            f"{rep.mode}, stored chunk bytes {rep.stored_bytes_before} -> "
+            f"{rep.stored_bytes_after}, chunks deleted {rep.chunks_deleted}, "
+            f"written {rep.chunks_written}, write/delete round trips "
+            f"{rep.write_round_trips}/{rep.delete_round_trips}")
+        again = restore(v_fork, "after retention")
+        if not equal_trees(torch, TR, again, fork):             # check 5
+            raise AssertionError("tr: v_fork differs after retention")
+        try:
+            ckpt.restore(v0)
+        except KeyError as e:
+            if "retired" not in str(e):
+                raise
+        else:
+            raise AssertionError("tr: restore of a retired version worked")
+        evo2 = ckpt.evolution("params/final_norm", 0)
+        if len({bytes(p) for _, p in evo2}) != 2:
+            raise AssertionError(f"tr: evolution after retention has "
+                                 f"{len(evo2)} values, not 2")
+        del again
+
+        u = (flat_params(torch, TR, main["params"])
+             - flat_params(torch, TR, restored["params"]))
+        t0 = time.perf_counter()
+        q, scale = grad_compress.compress_update(u)
+        back = grad_compress.decompress_update(q, scale, u.shape,
+                                               torch.float32)
+        torch.cuda.synchronize()
+        comp_s = time.perf_counter() - t0
+        err = float((back - u).abs().max())
+        lim = float(u.abs().max()) / 127 + 1e-8
+        if not err <= lim:                                       # check 6
+            raise AssertionError(f"tr: compression error {err} > {lim}")
+        log(f"[tr] compress_update/decompress_update of params(main) - "
+            f"params(step {TR_STEPS // 2}), {u.numel()} values: {comp_s:.4f}"
+            f" s, max error {err!r} <= {lim!r}")
+        del u, q, scale, back, main, fork, restored
+
+        with tempfile.TemporaryDirectory() as tmp:
+            argv = ["--arch", TR_ARCH, "--reduced", "--steps", "6",
+                    "--checkpoint-every", "3", "--ckpt-state",
+                    os.path.join(tmp, "ckpt.pkl")]
+            t0 = time.perf_counter()
+            try:
+                launch_train.run(argv + ["--crash-at", "4"])
+            except SystemExit as e:
+                if e.code != 17:
+                    raise
+            else:
+                raise AssertionError("tr: the launcher did not crash")
+            _, st6 = launch_train.run(argv + ["--resume"])
+            run_s = time.perf_counter() - t0
+        rcfg = ARCHS[TR_ARCH].reduced()
+        rcfg = rcfg.__class__(**{**rcfg.__dict__, "dtype": "float32",
+                                 "remat": "none"})
+        loss = float(build_model(rcfg).loss(
+            st6["params"], synthetic_batch(rcfg, 6, 8, 128, device=dev)))
+        if not np.isfinite(loss):                                # check 7
+            raise AssertionError(f"tr: the resumed launcher's loss {loss}")
+        log(f"[tr] launch.train.run crash at step 4, then --resume to step "
+            f"6: {run_s:.3f} s, loss after it {loss!r}")
+        launches = read_launches(K)
+        batch = synthetic_batch(cfg, 0, TR_BATCH, TR_SEQ, device=dev)
+        busy_s, wall_s, top = device_busy(torch, lambda: step_fn(state0,
+                                                                 batch))
+        log(f"[tr] profiled train step: {wall_s * 1e3:.3f} ms wall, device "
+            f"busy {busy_s * 1e3:.3f} ms ({busy_s / wall_s:.3%}), idle "
+            f"{1 - busy_s / wall_s:.3%}; top device ops: {top}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        K.bitmap.bitmap_vm, K.delta.xor_delta = orig_vm, orig_xor
+        timers.close()
+    ms = sorted(step_ms)
+    med = ms[len(ms) // 2]
+    log(f"[tr] train step: median {med:.3f} ms over {len(ms)} steps "
+        f"(synchronized; min {ms[0]:.3f}, max {ms[-1]:.3f}), "
+        f"{tokens / med * 1e3:.0f} tokens/s")
+    log(f"[tr] launches: {json.dumps(launches)}; peak device memory "
+        f"{torch.cuda.max_memory_allocated()} bytes; host RSS "
+        f"{host_rss_kib()} KiB")
+    if launches["bitmap_vm"] <= 0 or launches["xor_delta"] <= 0:
+        raise AssertionError(f"tr: a kernel of the path never launched: "
+                             f"{launches}")
+    return launches, tr_program, xor_shapes[0]
+
+
 class Bench:
     """Shared tools of the kernel phases: seeded random words on the card,
     exact comparison, CUDA-event times of a C entry point, and the bound."""
@@ -1233,7 +1552,8 @@ def path_launches(launches, kernel: str) -> Dict[str, object]:
     return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
 
-def vm_and_xor_phases(B: Bench, K, bitmap_inputs, delta_shapes, launches):
+def vm_and_xor_phases(B: Bench, K, bitmap_inputs, delta_shapes,
+                      tr_xor_shape, launches):
     """bitmap_vm and xor_delta against their plain versions, then timed.
     Each time is the kernel alone, launched through its C entry point on
     preallocated buffers (``Bench.launch_ms``: ``ms`` device time from a
@@ -1323,12 +1643,17 @@ def vm_and_xor_phases(B: Bench, K, bitmap_inputs, delta_shapes, launches):
               "ms", "event_ms", "bound_ms")},
           "ops_wave_0": {k: dict(rows)["ops wave 0"][k] for k in (
               "ms", "event_ms", "cold_ms", "plain_ms", "bound_ms", "S", "W",
-              "P")}}
+              "P")},
+          "tr_partial_restore": {k: dict(rows)["tr partial restore 0"][k]
+                                 for k in ("ms", "event_ms", "cold_ms",
+                                           "plain_ms", "bound_ms", "S", "W",
+                                           "P")}}
 
     # ---- xor_delta: the kernel's scalar branch (a width that is not a
     # multiple of 4 words; inputs 4 bytes off 16-byte alignment), then the
-    # vector branch at the k3 path's largest and median launch shapes and at
-    # (65536, 64) words = 256-byte records
+    # vector branch at the k3 path's largest and median launch shapes, at
+    # (65536, 64) words = 256-byte records and at the tr path's
+    # xor_delta_stats launch (the flattened params in rows of 64 KiB)
     err = 0
     N, W = 4096, RECORD // 4
     flat_p, flat_c = B.words(N * W + 1), B.words(N * W + 1)
@@ -1348,7 +1673,8 @@ def vm_and_xor_phases(B: Bench, K, bitmap_inputs, delta_shapes, launches):
     by_size = sorted(delta_shapes, key=lambda s: (s[0] * s[1], s))
     shapes = {"path largest": by_size[-1],
               "path median": by_size[len(by_size) // 2],
-              "65536": (65536, RECORD // 4)}
+              "65536": (65536, RECORD // 4),
+              "tr xor_delta_stats": tr_xor_shape}
     xrows = {}
     for name, (N, W) in shapes.items():
         p, c = B.words(N, W), B.words(N, W)
@@ -1385,7 +1711,7 @@ def vm_and_xor_phases(B: Bench, K, bitmap_inputs, delta_shapes, launches):
           "replaces": "src/repro/kernels/deltaenc.py:47",
           **path_launches(launches, "xor_delta"), "max_abs_err": err,
           **x, "path_largest": xrows["path largest"],
-          "n65536": xrows["65536"]}
+          "n65536": xrows["65536"], "tr_launch": xrows["tr xor_delta_stats"]}
     return [vm, xd]
 
 
@@ -1551,9 +1877,17 @@ def main() -> int:
     ap.add_argument("--versions", type=int, default=64)
     ap.add_argument("--k3-base-log2", type=int, default=16)
     ap.add_argument("--k3-versions", type=int, default=32)
-    ap.add_argument("--ops-base-log2", type=int, default=20)
+    ap.add_argument("--ops-base-log2", type=int, default=19,
+                    help="ops's base records (cut from 2^20 so the whole "
+                    "run fits its time)")
     ap.add_argument("--ops-versions", type=int, default=64)
+    ap.add_argument("--tr-layers", type=int, default=2,
+                    help="tr's depth (smollm-360m has 32; cut so the whole "
+                    "run fits its time)")
     args = ap.parse_args()
+    # cuBLAS is deterministic only with a fixed workspace, set before its
+    # first call; the tr path's bit-identical resume depends on it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
     import torch
     if not torch.cuda.is_available():
@@ -1604,12 +1938,18 @@ def main() -> int:
     free("k3")
     launches["ops"], ops_bitmap_inputs = main_path_ops(args, torch, dev, T, K)
     free("ops")
+    launches["tr"], tr_bitmap_inputs, tr_xor_shape = main_path_tr(
+        args, torch, dev, K)
+    free("tr")
     bitmap_inputs = ([(f"k1 wave {i}", r, p)
                       for i, (r, p) in enumerate(bitmap_inputs)]
                      + [(f"ops wave {i}", r, p)
-                        for i, (r, p) in enumerate(ops_bitmap_inputs)])
+                        for i, (r, p) in enumerate(ops_bitmap_inputs)]
+                     + [(f"tr partial restore {i}", r, p)
+                        for i, (r, p) in enumerate(tr_bitmap_inputs)])
     B = Bench(torch, dev)
-    kernels = vm_and_xor_phases(B, K, bitmap_inputs, delta_shapes, launches)
+    kernels = vm_and_xor_phases(B, K, bitmap_inputs, delta_shapes,
+                                tr_xor_shape, launches)
     kernels.append(minhash_phase(B, K, mh_inputs, launches))
     kernels.append(and_popcount_phase(B, K, ap_inputs, launches))
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all; peak device "

@@ -1,5 +1,11 @@
-"""State carried across: build a port store from another store's dumped
-state.
+"""State carried across from the reference package, as plain data.
+
+Training state: ``state_from_reference`` turns a state tree of the reference
+(nested dicts and lists of numpy arrays, ``np.asarray`` of each leaf) into
+the port's tree of tensors on a device; ``state_to_numpy`` goes back.
+
+Stores: ``rstore_from_state`` builds a port store from another store's
+dumped state.
 
 The state is plain data — numpy arrays, bytes and ints — so any store with
 the same layout (the reference package's included) can hand its content
@@ -30,12 +36,44 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import numpy as np
+import torch
+
+from . import tree as T
 
 from .core.index import Projections
 from .core.ingest import RStore, RStoreConfig
 from .core.kvs import Backend
 from .core.secondary import AttributeExtractor, SecondaryIndex
-from .device import DeviceLike
+from .device import DeviceLike, resolve_device
+
+
+def state_from_reference(tree, device: DeviceLike = None):
+    """The same tree with every numpy leaf a tensor on ``device`` (``None``
+    = the card), same dtype, shape and bits.  A ``bfloat16`` leaf (numpy's
+    extension dtype of that name) becomes a ``torch.bfloat16`` tensor."""
+    dev = resolve_device(device)
+
+    def one(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16)
+                                 .copy()).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(a, copy=True))
+        return t.to(dev)
+    return T.tree_map(one, tree)
+
+
+def state_to_numpy(tree):
+    """The same tree with every tensor leaf a numpy array on the host;
+    ``bfloat16`` tensors come back as float32 (exact), since numpy has no
+    bfloat16 of its own."""
+    def one(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.to(torch.float32)
+        return t.numpy()
+    return T.tree_map(one, tree)
 
 
 def rstore_from_state(state: Dict[str, Any],

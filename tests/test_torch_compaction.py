@@ -378,3 +378,57 @@ def test_stats_snapshot_restore_merge_cover_delete_counters():
     assert KVSStats(n_delete_queries=2).simulated_write_seconds(1e-3, 1e9) \
         == pytest.approx(2e-3)
 
+
+
+# ---------------------------------------------------------- checkpointer GC
+def test_checkpointer_retain_last_caps_storage():
+    from repro_torch.train.checkpoint import VersionedCheckpointer
+
+    kvs = InMemoryKVS()
+    rs = RStore(RStoreConfig(capacity=4096, batch_size=4), kvs=kvs,
+                device="cpu")
+    ck = VersionedCheckpointer(store=rs, block_bytes=512)
+    rng = np.random.default_rng(16)
+    state = {"w": rng.normal(size=(64, 8)).astype(np.float32)}
+    vids = []
+    for i in range(12):
+        w = state["w"].copy()
+        w[i % 64, :] += 1.0           # one dirty block per step
+        state = {"w": w}
+        vids.append(ck.commit(state, parents=vids[-1:] or ()))
+    before = rs.storage_stats()["stored_chunk_bytes"]
+    rep = ck.retain_last(3)
+    assert rep is not None and rep.mode in ("pass", "noop")
+    assert rs.storage_stats()["stored_chunk_bytes"] <= before
+    assert set(ck.meta) == set(vids[-3:])    # metas of dropped versions gone
+    got = ck.restore(vids[-1])
+    np.testing.assert_array_equal(got["w"], state["w"])
+    with pytest.raises(KeyError, match="retired"):
+        ck.restore(vids[0])
+
+
+def test_checkpointer_retain_tagged_pins_milestones():
+    from repro_torch.train.checkpoint import VersionedCheckpointer
+
+    rs = RStore(RStoreConfig(capacity=4096, batch_size=4), device="cpu")
+    ck = VersionedCheckpointer(store=rs, block_bytes=512)
+    rng = np.random.default_rng(17)
+    state = {"w": rng.normal(size=(32, 8)).astype(np.float32)}
+    vids = []
+    for i in range(8):
+        state = {"w": state["w"] + 1.0}
+        vids.append(ck.commit(state, parents=vids[-1:] or (),
+                              tag=f"step{i}" if i % 4 == 0 else ""))
+    assert ck.tags == {"step0": vids[0], "step4": vids[4]}
+    want = ck.restore(vids[4])
+    rep = ck.retain_tagged(["step0", "step4"])
+    assert rep is not None
+    assert set(ck.meta) == {vids[0], vids[4]}
+    np.testing.assert_array_equal(ck.restore(vids[4])["w"], want["w"])
+    with pytest.raises(KeyError, match="retired"):
+        ck.restore(vids[1])
+    # dropped versions' tags vanish with them; unknown tags raise
+    rep2 = ck.retain_tagged(["step4"])
+    assert ck.tags == {"step4": vids[4]}
+    with pytest.raises(KeyError, match="unknown checkpoint tag"):
+        ck.retain_tagged(["step0"])

@@ -12,9 +12,17 @@ import torch
 import repro_torch
 from repro_torch.core import RStore, ShardedDeviceKVS, VersionGraph
 from repro_torch.core.index import Projections
+from repro_torch.configs import ARCHS
 from repro_torch.core.partition import ShinglePartitioner
+from repro_torch.data.pipeline import synthetic_batch
+from repro_torch.interop import state_from_reference
 from repro_torch.kernels import ops
+from repro_torch.launch import train as launch_train
 from repro_torch.launch.mesh import make_sharded_backend
+from repro_torch.models.model import init_params
+from repro_torch.train.checkpoint import VersionedCheckpointer
+from repro_torch.train.optimizer import make_optimizer
+from repro_torch.train.train_step import init_state
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 
@@ -30,7 +38,12 @@ def test_port_imports_no_jax_and_no_reference():
               "core.partition.shingle", "core.partition.traversal",
               "core.partition.baselines", "core.query", "core.datagen",
               "core.secondary", "core.compact", "core.cache", "core.replica",
-              "core.flusher", "serve.ingest_gateway", "launch.mesh"):
+              "core.flusher", "serve.ingest_gateway", "launch.mesh",
+              "tree", "models.config", "models.layers", "models.model",
+              "configs", "configs.registry", "configs.shapes",
+              "configs.smollm_360m", "data.pipeline", "train.optimizer",
+              "train.train_step", "train.checkpoint", "train.grad_compress",
+              "launch.train"):
         assert "repro_torch." + m in mods, m
     code = (
         "import importlib, sys\n"
@@ -73,6 +86,14 @@ def _one_version_graph() -> VersionGraph:
     lambda: Projections({0: np.array([0])}, {1: np.array([0])},
                         1).candidates_batch([(0, [1])]),
     lambda: make_sharded_backend(),
+    lambda: VersionedCheckpointer(),
+    lambda: init_state(ARCHS["smollm-360m"].reduced(),
+                       make_optimizer(ARCHS["smollm-360m"]),
+                       torch.Generator()),
+    lambda: init_params(ARCHS["smollm-360m"].reduced(), torch.Generator()),
+    lambda: synthetic_batch(ARCHS["smollm-360m"].reduced(), 0, 2, 8),
+    lambda: state_from_reference({"w": np.zeros(2, np.float32)}),
+    lambda: launch_train.run(["--reduced", "--steps", "1"]),
 ])
 def test_default_device_is_the_card(entry):
     """With no device given, an entry point asks for CUDA and raises here

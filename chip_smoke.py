@@ -30,7 +30,9 @@ then:
 3. k=3 main path (§3.4 sub-chunk compression): 2^16 base records, 32
    versions, bounded payload changes (p_d = 0.1), ``rs.build()`` and one
    checked 64-query wave; then ``retain(keep_last(16))`` and ``compact()``,
-   a full rebuild at k>1 (the delta kernel again), and a second wave.
+   a full rebuild at k>1 (the delta kernel again), and a second wave.  The
+   ``xor_delta`` launches of each phase are printed; a build or a
+   compaction that makes more than 3 fails the run.
 4. ops main path, the store's operational layer: an A-family chain of 2^19
    base records and 64 versions whose payloads carry two attributes (f0,
    f1 = a tenant id), ingested by 4 clients through an ``IngestGateway``
@@ -55,9 +57,10 @@ then:
    evolution of a block, ``retain_last(2)`` with compaction, int8 update
    compression, and the training launcher's crash and ``--resume``.
 6. Kernel phases: each kernel against its plain PyTorch version on the card,
-   bit-exact, at the shapes the main paths gave it and at the shapes named
-   below, with device times (a CUDA graph of 200 launches) and host-launched
-   CUDA-event times beside the bound.
+   bit-exact, at the shapes the main paths gave it (``xor_delta`` at every
+   ragged launch of k3) and at the shapes named below, with device times (a
+   CUDA graph of 200 launches) and host-launched CUDA-event times beside
+   the bound.
 
 Each kernel wrapper counts its own launches; all four counts are zeroed
 just before each main path and read just after it.  Every phase raises on
@@ -614,6 +617,11 @@ def main_path_k1(args, torch, dev, T, eng_mod, K):
 
 
 def main_path_k3(args, torch, dev, T, K):
+    """The k=3 path.  Every ``xor_delta`` launch goes through the ragged
+    entry; each is recorded (its phase and a copy of its inputs) for the
+    kernel phase.  A build and a compaction (a rebuild at k>1) may make at
+    most 3 launches each: the sizing pass and the one call that XORs every
+    delta pair of the chunks staged."""
     chain = Chain(args.seed + 1, 1 << args.k3_base_log2, args.k3_versions,
                   p_d=0.1)
     log(f"[k3] chain: {1 << args.k3_base_log2} base records, "
@@ -623,67 +631,71 @@ def main_path_k3(args, torch, dev, T, K):
                         for _ in range(4)])
     rs = T.RStore(T.RStoreConfig(k=3), kvs, device=dev)
     kdelta = K.delta
-    delta_inputs = []
-    orig = kdelta.xor_delta
+    delta_inputs = []           # (phase, parent, child, row offsets)
+    phase = ["staging"]
+    per_phase: Dict[str, int] = {}
+    orig = kdelta.xor_delta_ragged
 
-    def recording_delta(p, c):
-        delta_inputs.append(tuple(p.shape))
-        return orig(p, c)
-    kdelta.xor_delta = recording_delta
-    try:
+    def recording_ragged(p, c, off):
+        delta_inputs.append((phase[0], p.clone(), c.clone(), off.clone()))
+        return orig(p, c, off)
+
+    def run(name, fn):
+        phase[0] = name
+        d0 = kdelta.LAUNCHES
         t0 = time.perf_counter()
-        ingest(rs, chain, flush_on_close=False)
-        stage_s = time.perf_counter() - t0
+        out = fn()
+        torch.cuda.synchronize()
+        per_phase[name] = kdelta.LAUNCHES - d0
+        return out, time.perf_counter() - t0
+    kdelta.xor_delta_ragged = recording_ragged
+    try:
+        _, stage_s = run("staging",
+                         lambda: ingest(rs, chain, flush_on_close=False))
         zero_launches(K)
         delta_inputs.clear()
-        t0 = time.perf_counter()
-        rs.build()
-        torch.cuda.synchronize()
-        build_s = time.perf_counter() - t0
-        build_launches = kdelta.LAUNCHES
+        _, build_s = run("build", rs.build)
         vid = chain.targets[-1]
         qs, wants = chain.wave(T.Q, vid, args.seed * 100 + 99)
-        t0 = time.perf_counter()
-        batch = rs.snapshot().execute(qs)
-        torch.cuda.synchronize()
-        wave_s = time.perf_counter() - t0
+        batch, wave_s = run("wave", lambda: rs.snapshot().execute(qs))
         check_wave(batch, wants, "k3 wave")
         st = rs.storage_stats()
         # retention, then compaction: at k>1 the pass is a full rebuild
         keep = min(16, args.k3_versions // 2)
         retired = rs.retain(T.keep_last(keep))
-        d0, n0 = kdelta.LAUNCHES, len(delta_inputs)
-        t0 = time.perf_counter()
-        crep = rs.compact()
-        torch.cuda.synchronize()
-        comp_s = time.perf_counter() - t0
-        comp_launches = kdelta.LAUNCHES - d0
-        comp_pairs = sum(sh[0] for sh in delta_inputs[n0:])
+        crep, comp_s = run("compaction", rs.compact)
         qs2, wants2 = chain.wave(T.Q, vid, args.seed * 100 + 98,
                                  first_kept=args.k3_versions - keep)
-        t0 = time.perf_counter()
-        batch2 = rs.snapshot().execute(qs2)
-        torch.cuda.synchronize()
-        wave2_s = time.perf_counter() - t0
+        batch2, wave2_s = run("wave after compaction",
+                              lambda: rs.snapshot().execute(qs2))
         launches = read_launches(K)
     finally:
-        kdelta.xor_delta = orig
+        kdelta.xor_delta_ragged = orig
     check_wave(batch2, wants2, "k3 wave after compaction")
+
+    def pairs(name):
+        return sum(off.numel() - 1 for ph, _, _, off in delta_inputs
+                   if ph == name)
     log(f"[k3] staging {stage_s:.3f} s, build {build_s:.3f} s "
-        f"({build_launches} xor_delta launches), wave {wave_s:.4f} s "
-        f"({batch.batch.kvs_queries} read round trips, "
+        f"({per_phase['build']} xor_delta launches, {pairs('build')} pairs),"
+        f" wave {wave_s:.4f} s ({batch.batch.kvs_queries} read round trips, "
         f"{batch.batch.bytes_fetched} bytes gathered); stored chunk bytes "
         f"{st['stored_chunk_bytes']} vs raw unique {st['raw_unique_bytes']}")
     log(f"[k3] retain(keep_last({keep})) retired {len(retired)} versions; "
-        f"compact(): {comp_s:.3f} s, mode {crep.mode}, {comp_launches} "
-        f"xor_delta launches ({comp_pairs} pairs), stored chunk bytes "
+        f"compact(): {comp_s:.3f} s, mode {crep.mode}, "
+        f"{per_phase['compaction']} xor_delta launches "
+        f"({pairs('compaction')} pairs), stored chunk bytes "
         f"{crep.stored_bytes_before} -> {crep.stored_bytes_after}, write/"
         f"delete round trips {crep.write_round_trips}/"
         f"{crep.delete_round_trips}; wave after it {wave2_s:.4f} s "
         f"({batch2.batch.kvs_queries} read round trips)")
-    if launches["xor_delta"] <= 0 or comp_launches <= 0:
+    log(f"[k3] xor_delta launches per phase: {json.dumps(per_phase)}")
+    if launches["xor_delta"] <= 0 or per_phase["compaction"] <= 0:
         raise AssertionError("the k=3 path (or its compaction) launched no "
                              "xor_delta kernel")
+    if per_phase["build"] > 3 or per_phase["compaction"] > 3:
+        raise AssertionError(f"k3: more than 3 xor_delta launches in build() "
+                             f"or compact(): {per_phase}")
     if crep.mode != "rebuild" or vid in retired:
         raise AssertionError(f"k3 compaction: mode {crep.mode}, target "
                              f"v{vid} retired")
@@ -691,12 +703,12 @@ def main_path_k3(args, torch, dev, T, K):
         raise AssertionError("k3 compaction stored no fewer bytes")
     if st["stored_chunk_bytes"] >= st["raw_unique_bytes"]:
         raise AssertionError("sub-chunk compression stored no fewer bytes")
-    by_size = sorted(delta_inputs, key=lambda s: (s[0] * s[1], s))
+    shapes = sorted((off.numel() - 1, p.numel()) for _, p, _, off
+                    in delta_inputs)
     log(f"[k3] launches during build + waves + compaction: "
-        f"{json.dumps(launches)}; "
-        f"xor_delta input shapes: largest {by_size[-1]}, median "
-        f"{by_size[len(by_size) // 2]}, smallest {by_size[0]}, "
-        f"{sum(s[0] for s in delta_inputs)} pairs in all")
+        f"{json.dumps(launches)}; xor_delta (pairs, words): largest "
+        f"{shapes[-1]}, median {shapes[len(shapes) // 2]}, smallest "
+        f"{shapes[0]}, {sum(n for n, _ in shapes)} pairs in all")
     log("[k3] every answer equals the dict oracle")
     return launches, delta_inputs
 
@@ -1552,7 +1564,7 @@ def path_launches(launches, kernel: str) -> Dict[str, object]:
     return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
 
-def vm_and_xor_phases(B: Bench, K, bitmap_inputs, delta_shapes,
+def vm_and_xor_phases(B: Bench, K, bitmap_inputs, delta_inputs,
                       tr_xor_shape, launches):
     """bitmap_vm and xor_delta against their plain versions, then timed.
     Each time is the kernel alone, launched through its C entry point on
@@ -1649,35 +1661,39 @@ def vm_and_xor_phases(B: Bench, K, bitmap_inputs, delta_shapes,
                                            "plain_ms", "bound_ms", "S", "W",
                                            "P")}}
 
-    # ---- xor_delta: the kernel's scalar branch (a width that is not a
-    # multiple of 4 words; inputs 4 bytes off 16-byte alignment), then the
-    # vector branch at the k3 path's largest and median launch shapes, at
-    # (65536, 64) words = 256-byte records and at the tr path's
+    # ---- xor_delta: the ragged entry at every launch the k3 path made
+    # (its build's and compaction's, and its waves' decode levels), then the
+    # (N, W) entry at an odd width, at inputs off 16-byte alignment (4 and
+    # 12 bytes: the two inputs aligned differently), at (80957, 64) and
+    # (65536, 64) words (256-byte records) and at the tr path's
     # xor_delta_stats launch (the flattened params in rows of 64 KiB)
     err = 0
-    N, W = 4096, RECORD // 4
-    flat_p, flat_c = B.words(N * W + 1), B.words(N * W + 1)
-    for name, p, c in (
-            ("W=63", B.words(N, W - 1), B.words(N, W - 1)),
-            ("unaligned", flat_p[1:].view(N, W), flat_c[1:].view(N, W))):
-        c[::2] = p[::2]
-        d1, n1 = kdelta.xor_delta(p, c)
-        d2, n2 = kref.xor_delta_ref(p, c)
+    for ph, p, c, off in delta_inputs:
+        d1, n1 = kdelta.xor_delta_ragged(p, c, off)
+        d2, n2 = kref.xor_delta_ragged_ref(p, c, off)
         torch.cuda.synchronize()
         e = max(B.err(d1, d2), B.err(n1, n2))
         if e:
-            raise AssertionError(f"xor_delta scalar branch {name} "
-                                 f"{tuple(p.shape)} disagrees: {e}")
-        log(f"[kernels] xor_delta scalar branch {name} {tuple(p.shape)}: "
-            "bit-exact")
-    by_size = sorted(delta_shapes, key=lambda s: (s[0] * s[1], s))
-    shapes = {"path largest": by_size[-1],
-              "path median": by_size[len(by_size) // 2],
-              "65536": (65536, RECORD // 4),
-              "tr xor_delta_stats": tr_xor_shape}
-    xrows = {}
-    for name, (N, W) in shapes.items():
-        p, c = B.words(N, W), B.words(N, W)
+            raise AssertionError(f"xor_delta ragged ({ph}, {off.numel() - 1} "
+                                 f"rows, {p.numel()} words) disagrees: {e}")
+        err = max(err, e)
+    log(f"[kernels] xor_delta ragged: all {len(delta_inputs)} launches of "
+        "the k3 path bit-exact")
+
+    def shifted(N, W, shift):
+        return B.words(N * W + shift)[shift:].view(N, W)
+    uniform = {"W=63": (shifted(4096, 63, 0), shifted(4096, 63, 0)),
+               "unaligned": (shifted(4096, 64, 1), shifted(4096, 64, 3)),
+               "80957": (shifted(80957, RECORD // 4, 0),
+                         shifted(80957, RECORD // 4, 0)),
+               "65536": (shifted(65536, RECORD // 4, 0),
+                         shifted(65536, RECORD // 4, 0)),
+               "tr xor_delta_stats": (shifted(*tr_xor_shape, 0),
+                                      shifted(*tr_xor_shape, 0)),
+               "tr shape, unaligned": (shifted(*tr_xor_shape, 1),
+                                       shifted(*tr_xor_shape, 3))}
+    for name, (p, c) in uniform.items():
+        N, W = p.shape
         c[::2] = p[::2] ^ (B.words((N + 1) // 2, W) & 0x0F)
         d1, n1 = kdelta.xor_delta(p, c)
         d2, n2 = kref.xor_delta_ref(p, c)
@@ -1685,33 +1701,69 @@ def vm_and_xor_phases(B: Bench, K, bitmap_inputs, delta_shapes,
         e = max(B.err(d1, d2), B.err(n1, n2))
         if e:
             raise AssertionError(f"xor_delta {name} ({N}, {W}) disagrees: {e}")
-        d, n = torch.empty_like(p), torch.empty(N, dtype=torch.int32,
-                                                 device=dev)
-        vec = int(W % 4 == 0)
-        t = B.launch_ms(B.lib.xor_delta_launch, p.data_ptr(), c.data_ptr(),
-                        d.data_ptr(), n.data_ptr(), N, W, vec)
-        wrapper = cuda_ms(torch, lambda: kdelta.xor_delta(p, c))
-        plain = cuda_ms(torch, lambda: kref.xor_delta_ref(p, c))
-        half = cuda_ms(torch, lambda: torch.bitwise_xor(p, c, out=d), 200)
-        half_dev = B.graph_ms(lambda: torch.bitwise_xor(p, c, out=d))
-        bound, by = B.bound(3 * N * W * 4 + 4 * N, 2 * N * W)
+        err = max(err, e)
+        log(f"[kernels] xor_delta {name} ({N}, {W}): bit-exact")
+
+    def by_words(ph):
+        ins = [x for x in delta_inputs if x[0] == ph]
+        return sorted(ins, key=lambda x: (x[1].numel(), x[3].numel()))
+    ragged = {"k3 build": by_words("build")[-1],
+              "k3 compaction": by_words("compaction")[-1]}
+    waves = by_words("wave") + by_words("wave after compaction")
+    if waves:
+        ragged["k3 decode median"] = waves[len(waves) // 2]
+    xrows = {}
+
+    def xrow(name, N, rows_words, t, plain, wrapper, half, half_dev, nbytes):
+        bound, by = B.bound(nbytes, 2 * rows_words)
         xrows[name] = dict(**t, plain_ms=plain, library_ms=None,
                            xor_half_ms=half_dev, xor_half_event_ms=half,
-                           bound_ms=bound, bound_by=by, shape=[N, W])
-        log(f"[kernels] xor_delta {name} ({N}, {W}): device {t['ms']:.5f} ms "
-            f"(events {t['event_ms']:.5f} ms, cold L2 {t['cold_ms']:.5f} ms, "
-            f"wrapper {wrapper:.5f} ms, plain {plain:.5f} ms, "
-            f"torch.bitwise_xor alone (the XOR half) device {half_dev:.5f} "
-            f"ms, events {half:.5f} ms; bound {bound:.6f} ms by {by}, "
-            f"{bound / t['ms']:.2%} of it), bit-exact")
-        err = max(err, e)
-    x = xrows["path median"]
+                           bound_ms=bound, bound_by=by,
+                           shape=[N, rows_words])
+        log(f"[kernels] xor_delta {name} ({N} rows, {rows_words} words): "
+            f"device {t['ms']:.5f} ms (events {t['event_ms']:.5f} ms, cold "
+            f"L2 {t['cold_ms']:.5f} ms, wrapper {wrapper:.5f} ms, plain "
+            f"{plain:.5f} ms, torch.bitwise_xor alone (the XOR half) device "
+            f"{half_dev:.5f} ms, events {half:.5f} ms; bound {bound:.6f} ms "
+            f"by {by}, {bound / t['ms']:.2%} of it)")
+    for name, (_, p, c, off) in ragged.items():
+        n, T = off.numel() - 1, p.numel()
+        d, cnt = torch.empty_like(p), torch.empty(n, dtype=torch.int32,
+                                                  device=dev)
+        t = B.launch_ms(B.lib.xor_delta_ragged_launch, p.data_ptr(),
+                        c.data_ptr(), d.data_ptr(), cnt.data_ptr(),
+                        off.data_ptr(), n, T)
+        xrow(name, n, T, t,
+             cuda_ms(torch, lambda: kref.xor_delta_ragged_ref(p, c, off)),
+             cuda_ms(torch, lambda: kdelta.xor_delta_ragged(p, c, off)),
+             cuda_ms(torch, lambda: torch.bitwise_xor(p, c, out=d), 200),
+             B.graph_ms(lambda: torch.bitwise_xor(p, c, out=d)),
+             3 * T * 4 + 4 * n + 8 * (n + 1))
+    for name in ("80957", "65536", "tr xor_delta_stats",
+                 "tr shape, unaligned"):
+        p, c = uniform[name]
+        N, W = p.shape
+        d, n = torch.empty_like(p), torch.empty(N, dtype=torch.int32,
+                                                 device=dev)
+        t = B.launch_ms(B.lib.xor_delta_launch, p.data_ptr(), c.data_ptr(),
+                        d.data_ptr(), n.data_ptr(), N, W)
+        xrow(name, N, N * W, t,
+             cuda_ms(torch, lambda: kref.xor_delta_ref(p, c)),
+             cuda_ms(torch, lambda: kdelta.xor_delta(p, c)),
+             cuda_ms(torch, lambda: torch.bitwise_xor(p, c, out=d), 200),
+             B.graph_ms(lambda: torch.bitwise_xor(p, c, out=d)),
+             3 * N * W * 4 + 4 * N)
+        xrows[name]["shape"] = [N, W]
     xd = {"name": "xor_delta", "route": "cuda",
           "source": "src/repro_torch/kernels/csrc/xor_delta.cu",
           "replaces": "src/repro/kernels/deltaenc.py:47",
           **path_launches(launches, "xor_delta"), "max_abs_err": err,
-          **x, "path_largest": xrows["path largest"],
-          "n65536": xrows["65536"], "tr_launch": xrows["tr xor_delta_stats"]}
+          **xrows["k3 build"],
+          "k3_compaction": xrows["k3 compaction"],
+          "k3_decode_median": xrows.get("k3 decode median"),
+          "n80957": xrows["80957"], "n65536": xrows["65536"],
+          "tr_launch": xrows["tr xor_delta_stats"],
+          "tr_unaligned": xrows["tr shape, unaligned"]}
     return [vm, xd]
 
 
@@ -1807,20 +1859,27 @@ def minhash_phase(B: Bench, K, path_inputs, launches):
 
 def and_popcount_phase(B: Bench, K, path_inputs, launches):
     """and_popcount against its plain version, bit-exact: the sh path's own
-    pairwise (candidates_batch) and broadcast (candidates_range) inputs, N = 1, (65536, 512) pairwise and
-    broadcast, and the scalar branch (W = 511; inputs 4 bytes off 16-byte
-    alignment); then timed at the path's pairwise shape and at
-    (65536, 512)."""
+    pairwise (candidates_batch) and broadcast (candidates_range) inputs,
+    N = 1, (65536, 512) and the odd width (65536, 513) in both modes, and
+    (4096, 513) with its inputs 4 and 12 bytes off 16-byte alignment in both
+    modes; then timed at the path's two shapes and at (65536, 512) and
+    (65536, 513) in both modes."""
     torch, dev = B.torch, B.dev
-    N, W = 4096, 512
-    flat_b, flat_r = B.words(N * W + 1), B.words(N * W + 1)
+
+    def shifted(N, W, shift):
+        return B.words(N * W + shift)[shift:].view(N, W)
     cases = [(f"path {call}", bms, row)
              for call, (bms, row) in path_inputs.items()]
     cases += [("N=1", B.words(1, 512), B.words(1, 512)),
               ("pairwise 65536", B.words(65536, 512), B.words(65536, 512)),
               ("broadcast 65536", B.words(65536, 512), B.words(1, 512)),
-              ("W=511", B.words(N, W - 1), B.words(N, W - 1)),
-              ("unaligned", flat_b[1:].view(N, W), flat_r[1:].view(N, W))]
+              ("pairwise 65536x513", B.words(65536, 513),
+               B.words(65536, 513)),
+              ("broadcast 65536x513", B.words(65536, 513), B.words(1, 513)),
+              ("pairwise unaligned", shifted(4096, 513, 1),
+               shifted(4096, 513, 3)),
+              ("broadcast unaligned", shifted(4096, 513, 1),
+               shifted(1, 513, 3))]
     err = 0
     for name, bms, row in cases:
         a1, c1 = K.bitmap.and_popcount(bms, row)
@@ -1834,7 +1893,8 @@ def and_popcount_phase(B: Bench, K, path_inputs, launches):
         err = max(err, e)
     timed = {}
     timed_names = ("path candidates_batch", "path candidates_range",
-                   "pairwise 65536", "broadcast 65536")
+                   "pairwise 65536", "broadcast 65536", "pairwise 65536x513",
+                   "broadcast 65536x513")
     for name, bms, row in (c for c in cases if c[0] in timed_names):
         n, w = bms.shape
         out = torch.empty_like(bms)
@@ -1842,7 +1902,7 @@ def and_popcount_phase(B: Bench, K, path_inputs, launches):
         stride = w if row.shape[0] == n and n != 1 else 0
         t = B.launch_ms(B.lib.and_popcount_launch, bms.data_ptr(),
                         row.data_ptr(), out.data_ptr(), cnt.data_ptr(),
-                        n, w, stride, int(w % 4 == 0))
+                        n, w, stride)
         wrapper = cuda_ms(torch, lambda: K.bitmap.and_popcount(bms, row))
         plain = cuda_ms(torch, lambda: K.ref.and_popcount_ref(bms, row))
         half = cuda_ms(torch, lambda: torch.bitwise_and(bms, row, out=out),
@@ -1865,7 +1925,11 @@ def and_popcount_phase(B: Bench, K, path_inputs, launches):
             "source": "src/repro_torch/kernels/csrc/and_popcount.cu",
             "replaces": "src/repro/kernels/bitmap.py:78",
             **path_launches(launches, "and_popcount"), "max_abs_err": err,
-            **m}
+            **m, "candidates_range": timed["path candidates_range"],
+            "pairwise_65536x512": timed["pairwise 65536"],
+            "broadcast_65536x512": timed["broadcast 65536"],
+            "pairwise_65536x513": timed["pairwise 65536x513"],
+            "broadcast_65536x513": timed["broadcast 65536x513"]}
 
 
 def main() -> int:
@@ -1934,7 +1998,7 @@ def main() -> int:
         args, torch, dev, T, eng_mod, K, chain)
     del chain
     free("sh")
-    launches["k3"], delta_shapes = main_path_k3(args, torch, dev, T, K)
+    launches["k3"], delta_inputs = main_path_k3(args, torch, dev, T, K)
     free("k3")
     launches["ops"], ops_bitmap_inputs = main_path_ops(args, torch, dev, T, K)
     free("ops")
@@ -1948,7 +2012,7 @@ def main() -> int:
                      + [(f"tr partial restore {i}", r, p)
                         for i, (r, p) in enumerate(tr_bitmap_inputs)])
     B = Bench(torch, dev)
-    kernels = vm_and_xor_phases(B, K, bitmap_inputs, delta_shapes,
+    kernels = vm_and_xor_phases(B, K, bitmap_inputs, delta_inputs,
                                 tr_xor_shape, launches)
     kernels.append(minhash_phase(B, K, mh_inputs, launches))
     kernels.append(and_popcount_phase(B, K, ap_inputs, launches))

@@ -186,20 +186,32 @@ class StoredChunk:
 
 
 # -------------------------------------------------------------------- builder
-def build_chunk(graph: VersionGraph, record_ids: np.ndarray, chunk_id: int,
-                vidx_of: Dict[int, int], n_versions: int,
-                rec_versions_csr: Tuple[np.ndarray, np.ndarray],
-                subchunk_groups: Optional[List[np.ndarray]] = None,
-                compress_level: int = 6,
-                device=None) -> Tuple[StoredChunk, ChunkMap]:
-    """Assemble one physical chunk + its chunk map.
+@dataclass
+class StagedChunk:
+    """A chunk build's first pass: everything but its XOR deltas.
 
-    ``subchunk_groups``: optional list of record-id arrays (each a connected
-    same-primary-key group in sub-chunk tree order, §3.4); defaults to
-    singleton groups.  Records absent from any group get singletons.  All
-    of the chunk's (parent, child) delta pairs go through ONE
-    ``xor_delta_pairs`` call.
-    """
+    Singleton chunks are finished here (``subs``).  Otherwise ``staged``
+    holds each sub-chunk's ``(local ids, parent positions, lengths,
+    pieces)``, a piece being a raw payload or the index of its delta in
+    ``pair_parents``/``pair_children``, this chunk's delta pairs."""
+
+    chunk_id: int
+    cks: np.ndarray
+    raw_bytes: int
+    compress_level: int
+    subs: Optional[List[SubChunkBlob]] = None
+    staged: List[Tuple[Tuple[int, ...], List[int], List[int], List]] = \
+        field(default_factory=list)
+    pair_parents: List[bytes] = field(default_factory=list)
+    pair_children: List[bytes] = field(default_factory=list)
+
+
+def stage_chunk(graph: VersionGraph, record_ids: np.ndarray, chunk_id: int,
+                subchunk_groups: Optional[List[np.ndarray]] = None,
+                compress_level: int = 6) -> StagedChunk:
+    """Pass 1 of :func:`build_chunk`: the sub-chunks and their delta pairs,
+    which :func:`finish_chunk` turns into the stored chunk once the pairs
+    are XORed (for many chunks in one ``xor_delta_pairs`` call)."""
     store = graph.store
     cks = store.cks[record_ids]
     has_payloads = store.has_payloads()
@@ -214,18 +226,51 @@ def build_chunk(graph: VersionGraph, record_ids: np.ndarray, chunk_id: int,
         subs = [SubChunkBlob((i,), (-1,), (sz,),
                              zlib.compress(payload(r), compress_level))
                 for i, (r, sz) in enumerate(zip(record_ids.tolist(), sizes))]
-        raw_total = sum(sizes)
-    else:
-        subs, raw_total = _grouped_subchunks(
-            graph, record_ids, subchunk_groups, payload, compress_level,
-            device)
+        return StagedChunk(chunk_id, cks, sum(sizes), compress_level,
+                           subs=subs)
+    st = StagedChunk(chunk_id, cks, 0, compress_level)
+    _stage_groups(graph, record_ids, subchunk_groups, payload, st)
+    return st
 
-    chunk = StoredChunk(chunk_id=chunk_id, cks=cks, subchunks=subs,
-                        raw_bytes=raw_total)
+
+def finish_chunk(st: StagedChunk, deltas: Sequence[bytes]) -> StoredChunk:
+    """Pass 2 of :func:`build_chunk`: ``deltas[i]`` is the XOR of
+    ``st``'s pair ``i``; each sub-chunk is compressed."""
+    subs = st.subs
+    if subs is None:
+        subs = [SubChunkBlob(local, tuple(ppos), tuple(lens), zlib.compress(
+                    b"".join(deltas[p] if isinstance(p, int) else p
+                             for p in pieces), level=st.compress_level))
+                for local, ppos, lens, pieces in st.staged]
+    chunk = StoredChunk(chunk_id=st.chunk_id, cks=st.cks, subchunks=subs,
+                        raw_bytes=st.raw_bytes)
     chunk.stored_bytes = len(chunk.to_bytes())
+    return chunk
 
-    return chunk, build_chunk_map(graph, record_ids, n_versions,
-                                  rec_versions_csr)
+
+def build_chunk(graph: VersionGraph, record_ids: np.ndarray, chunk_id: int,
+                vidx_of: Dict[int, int], n_versions: int,
+                rec_versions_csr: Tuple[np.ndarray, np.ndarray],
+                subchunk_groups: Optional[List[np.ndarray]] = None,
+                compress_level: int = 6,
+                device=None) -> Tuple[StoredChunk, ChunkMap]:
+    """Assemble one physical chunk + its chunk map.
+
+    ``subchunk_groups``: optional list of record-id arrays (each a connected
+    same-primary-key group in sub-chunk tree order, §3.4); defaults to
+    singleton groups.  Records absent from any group get singletons.  All
+    of the chunk's (parent, child) delta pairs go through ONE
+    ``xor_delta_pairs`` call; a build of many chunks stages them all
+    (:func:`stage_chunk`) and XORs every pair in one call instead.
+    """
+    st = stage_chunk(graph, record_ids, chunk_id, subchunk_groups,
+                     compress_level)
+    deltas: List[bytes] = []
+    if st.pair_parents:
+        deltas, _ = kops.xor_delta_pairs(st.pair_parents, st.pair_children,
+                                         device=device)
+    return finish_chunk(st, deltas), build_chunk_map(
+        graph, record_ids, n_versions, rec_versions_csr)
 
 
 def build_chunk_map(graph: VersionGraph, record_ids: np.ndarray,
@@ -252,14 +297,12 @@ def build_chunk_map(graph: VersionGraph, record_ids: np.ndarray,
                     n_versions=n_versions)
 
 
-def _grouped_subchunks(graph: VersionGraph, record_ids: np.ndarray,
-                       subchunk_groups: List[np.ndarray], payload,
-                       compress_level: int, device
-                       ) -> Tuple[List[SubChunkBlob], int]:
+def _stage_groups(graph: VersionGraph, record_ids: np.ndarray,
+                  subchunk_groups: List[np.ndarray], payload,
+                  st: StagedChunk) -> None:
     """Sub-chunks of connected same-key groups (§3.4): each member after the
-    first is XOR-delta'd against its in-group tree parent, all of the
-    chunk's delta pairs in ONE ``xor_delta_pairs`` call; records in no group
-    get singletons."""
+    first is XOR-delta'd against its in-group tree parent (a delta pair of
+    ``st``); records in no group get singletons."""
     store = graph.store
     local_of = {int(r): i for i, r in enumerate(record_ids)}
     seen = set()
@@ -271,17 +314,13 @@ def _grouped_subchunks(graph: VersionGraph, record_ids: np.ndarray,
         if int(r) not in seen:
             groups.append(np.array([r], dtype=np.int64))
 
-    raw_total = 0
-    # pass 1: raw pieces, delta parent positions, and the delta pairs
-    staged: List[Tuple[Tuple[int, ...], List[int], List[int], List]] = []
-    pair_parents: List[bytes] = []
-    pair_children: List[bytes] = []
+    # raw pieces, delta parent positions, and the delta pairs
     for grp, parents in zip(groups, _subchunk_parents(graph, groups)):
         rids = grp.tolist()
         local = tuple(local_of[r] for r in rids)
         lens = store.sizes[grp].tolist()
         payloads = [payload(r) for r in rids]
-        raw_total += sum(lens)
+        st.raw_bytes += sum(lens)
         ppos = [-1] * len(rids)
         pos_of = {r: i for i, r in enumerate(rids)}
         pieces: List = []
@@ -292,21 +331,10 @@ def _grouped_subchunks(graph: VersionGraph, record_ids: np.ndarray,
                 pi = pos_of[int(par)]
                 ppos[i] = pi
                 w = max(len(payloads[pi]), len(payloads[i]))
-                pieces.append(len(pair_parents))     # index of its delta
-                pair_parents.append(payloads[pi].ljust(w, b"\0"))
-                pair_children.append(payloads[i].ljust(w, b"\0"))
-        staged.append((local, ppos, lens, pieces))
-
-    # pass 2: fill in the deltas, compress each sub-chunk
-    deltas: List[bytes] = []
-    if pair_parents:
-        deltas, _ = kops.xor_delta_pairs(pair_parents, pair_children,
-                                         device=device)
-    subs = [SubChunkBlob(local, tuple(ppos), tuple(lens), zlib.compress(
-                b"".join(deltas[p] if isinstance(p, int) else p
-                         for p in pieces), level=compress_level))
-            for local, ppos, lens, pieces in staged]
-    return subs, raw_total
+                pieces.append(len(st.pair_parents))   # index of its delta
+                st.pair_parents.append(payloads[pi].ljust(w, b"\0"))
+                st.pair_children.append(payloads[i].ljust(w, b"\0"))
+        st.staged.append((local, ppos, lens, pieces))
 
 
 def _subchunk_parents(graph: VersionGraph, groups: List[np.ndarray]):

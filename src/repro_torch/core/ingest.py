@@ -55,7 +55,8 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..device import DeviceLike, resolve_device
-from .chunkstore import build_chunk, build_chunk_map
+from ..kernels import ops as kops
+from .chunkstore import build_chunk_map, finish_chunk, stage_chunk
 from .compact import CompactionReport, Compactor, RetentionPolicy
 from .index import Projections
 from .kvs import Backend, InMemoryKVS
@@ -462,13 +463,27 @@ class RStore:
         """Build the physical blobs for ``chunks``, record them in the
         chunk bookkeeping, and return the staged ``(key, blob)`` write list
         — shared by flush(), build(), and the compactor so the key layout
-        and size accounting can never diverge between the three paths."""
-        writes: List[Tuple[str, bytes]] = []
-        for c in chunks:
-            chunk, cmap = build_chunk(
-                self.graph, c.record_ids, c.chunk_id, vidx_of, nv, csr,
-                subchunk_groups=(sub_groups_of or {}).get(c.chunk_id),
+        and size accounting can never diverge between the three paths.
+
+        Every chunk is staged first; then the delta pairs of all of them
+        go through one ``xor_delta_pairs`` call (split only by its
+        ``PAIRS_MAX_BYTES``), and each chunk is finished in order."""
+        staged = [stage_chunk(self.graph, c.record_ids, c.chunk_id,
+                              (sub_groups_of or {}).get(c.chunk_id))
+                  for c in chunks]
+        parents = [p for st in staged for p in st.pair_parents]
+        deltas: List[bytes] = []
+        if parents:
+            deltas, _ = kops.xor_delta_pairs(
+                parents, [c for st in staged for c in st.pair_children],
                 device=self.device)
+        writes: List[Tuple[str, bytes]] = []
+        first = 0
+        for c, st in zip(chunks, staged):
+            n = len(st.pair_parents)
+            chunk = finish_chunk(st, deltas[first:first + n])
+            first += n
+            cmap = build_chunk_map(self.graph, c.record_ids, nv, csr)
             self._chunk_records[c.chunk_id] = c.record_ids
             blob = chunk.to_bytes()
             self._chunk_bytes[c.chunk_id] = len(blob)

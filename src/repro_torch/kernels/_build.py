@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels.
 
 Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all started
-together, for ``sm_90a`` into an object file; the objects are linked into one
+together, for ``sm_90a`` into an object file (``csrc/*.cuh`` holds device code
+that several of them include); the objects are linked into one
 shared library with a plain C interface, loaded with ``ctypes``.  Nothing
 includes PyTorch's headers, so a build takes seconds.  The library is built
 at first use, from the sources in the checkout, into ``build/repro_torch/``
@@ -45,12 +46,16 @@ def _sources() -> List[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def _headers() -> List[Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def build() -> Path:
     """Compile the sources (in parallel) and link the library; returns its
     path.  Reuses an existing library built from identical sources."""
     srcs = _sources()
     digest = hashlib.sha256()
-    for s in srcs:
+    for s in srcs + _headers():
         digest.update(s.name.encode())
         digest.update(s.read_bytes())
     tag = digest.hexdigest()[:16]
@@ -93,10 +98,13 @@ def library() -> ctypes.CDLL:
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.bitmap_vm_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
         lib.bitmap_vm_launch.restype = i32
-        lib.xor_delta_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
+        lib.xor_delta_launch.argtypes = [ptr, ptr, ptr, ptr, i64, i64, ptr]
         lib.xor_delta_launch.restype = i32
-        lib.and_popcount_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
-                                            i32, ptr]
+        lib.xor_delta_ragged_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, i64,
+                                                i64, ptr]
+        lib.xor_delta_ragged_launch.restype = i32
+        lib.and_popcount_launch.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i32,
+                                            ptr]
         lib.and_popcount_launch.restype = i32
         lib.minhash_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i32, ptr]
         lib.minhash_launch.restype = i32

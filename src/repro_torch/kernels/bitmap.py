@@ -67,14 +67,12 @@ def and_popcount(bitmaps: torch.Tensor, row: torch.Tensor
     if N == 0:
         return out, cnt
     stride = W if row.shape[0] == N and N != 1 else 0
-    vec = int(W % 4 == 0 and all(t.data_ptr() % 16 == 0
-                                 for t in (bitmaps, row, out)))
     from . import _build
     global AND_LAUNCHES
     with torch.cuda.device(bitmaps.device):
         rc = _build.library().and_popcount_launch(
             bitmaps.data_ptr(), row.data_ptr(), out.data_ptr(),
-            cnt.data_ptr(), N, W, stride, vec,
+            cnt.data_ptr(), N, W, stride,
             torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "and_popcount")
     AND_LAUNCHES += 1

@@ -1,73 +1,57 @@
-// XOR-delta for Hopper (sm_90a): d = parent ^ child over (N, W) 32-bit
+// XOR-delta for Hopper (sm_90a): d = parent ^ child over rows of 32-bit
 // words, plus the count of nonzero words per row.  XOR is an involution, so
-// the same kernel encodes and decodes.
+// the same kernel encodes and decodes.  Two entries over the same device
+// code (rowwise.cuh):
+//  - xor_delta_ragged_launch: flat word buffers and an int64 CSR of word
+//    offsets, one row per (parent, child) pair, rows of any lengths; the
+//    store's build paths hand it every delta pair of a build in one call;
+//  - xor_delta_launch: (N, W) rows, the ragged case with uniform offsets.
 //
 // Replaces the TPU kernel repro/kernels/deltaenc.py:xor_delta
 // (_xor_delta_kernel at :24, its pallas_call at :47), which streams
-// (128, W) tiles through VMEM and lays the counts out along lanes.  Here one
-// warp owns one row: its lanes stride over the row with 16-byte loads and
-// stores (scalar words when W % 4 != 0 or a pointer is not 16-byte
-// aligned), and a warp-shuffle reduction gives the row's count, which lane 0
-// stores.  Eight rows per block.
+// (128, W) tiles through VMEM, every row padded to one width, and lays the
+// counts out along lanes.
+//
+// Design (rowwise.cuh): every width and alignment takes the 16-byte path
+// (at most 3 scalar words at each end of a row; an input that is not
+// aligned where the output is comes through two aligned int4 loads); rows
+// up to 4,096 words on average take a team of 4 to 32 lanes a row (8 for
+// the store's 64-word records); longer rows (the training path's 16,385-word
+// rows) are split across a thread-block cluster of up to 8 CTAs, whose
+// partial counts are combined through distributed shared memory in the same
+// launch.  A cluster was chosen over a last-block-done pass because it
+// needs no counter that must be zero before the launch, so neither a memset
+// launch nor a workspace kept zeroed between calls.
+//
+// The first design (one warp a row, eight rows a block, int4 only when
+// W % 4 == 0 and every pointer was 16-byte aligned, one launch per chunk
+// built) idled half of each warp on 64-word rows and ran odd widths one
+// scalar word a lane.
 //
 // Bound: memory.  Each input word is read once and each output word written
-// once: 3*N*W*4 + 4*N bytes at 3.35 TB/s; there is one XOR and one compare
-// per word, far below the card's integer rate.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// once: 3 * words * 4 + 4 * rows bytes at 3.35 TB/s, and the ragged entry
+// reads its 8 * (rows + 1) bytes of offsets too; there is one XOR and one
+// compare per word, far below the card's integer rate.
+#include "rowwise.cuh"
 
-namespace {
-
-constexpr int kWarps = 8;
-
-__device__ __forceinline__ int nonzero4(const int4& x) {
-  return (x.x != 0) + (x.y != 0) + (x.z != 0) + (x.w != 0);
-}
-
-__global__ void xor_delta_kernel(const int32_t* __restrict__ parent,
-                                 const int32_t* __restrict__ child,
-                                 int32_t* __restrict__ delta,
-                                 int32_t* __restrict__ cnt, int N, int W,
-                                 int vec) {
-  const int lane = threadIdx.x & 31;
-  const long long row =
-      static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (row >= N) return;  // row is uniform across the warp
-  const size_t off = static_cast<size_t>(row) * W;
-  int nz = 0;
-  if (vec) {
-    const int4* p4 = reinterpret_cast<const int4*>(parent + off);
-    const int4* c4 = reinterpret_cast<const int4*>(child + off);
-    int4* d4 = reinterpret_cast<int4*>(delta + off);
-    for (int i = lane; i < (W >> 2); i += 32) {
-      const int4 a = p4[i];
-      const int4 b = c4[i];
-      const int4 x = make_int4(a.x ^ b.x, a.y ^ b.y, a.z ^ b.z, a.w ^ b.w);
-      d4[i] = x;
-      nz += nonzero4(x);
-    }
-  } else {
-    for (int i = lane; i < W; i += 32) {
-      const int32_t x = parent[off + i] ^ child[off + i];
-      delta[off + i] = x;
-      nz += x != 0;
-    }
-  }
-  for (int o = 16; o > 0; o >>= 1) nz += __shfl_down_sync(0xffffffffu, nz, o);
-  if (lane == 0) cnt[row] = nz;
-}
-
-}  // namespace
-
-// Returns cudaGetLastError() after the launch (0 = launched).
+// Each returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int xor_delta_launch(const void* parent, const void* child,
-                                void* delta, void* cnt, int N, int W, int vec,
-                                void* stream) {
-  if (N <= 0) return 0;
-  const dim3 grid((N + kWarps - 1) / kWarps);
-  xor_delta_kernel<<<grid, kWarps * 32, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
+                                void* delta, void* cnt, long long N,
+                                long long W, void* stream) {
+  return static_cast<int>(rowwise::launch<false>(
       static_cast<const int32_t*>(parent), static_cast<const int32_t*>(child),
-      static_cast<int32_t*>(delta), static_cast<int32_t*>(cnt), N, W, vec);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<int32_t*>(delta), static_cast<int32_t*>(cnt),
+      rowwise::Rows{nullptr, W}, N, N * W, 0,
+      static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int xor_delta_ragged_launch(const void* parent, const void* child,
+                                       void* delta, void* cnt,
+                                       const void* row_off, long long n_rows,
+                                       long long total, void* stream) {
+  return static_cast<int>(rowwise::launch<false>(
+      static_cast<const int32_t*>(parent), static_cast<const int32_t*>(child),
+      static_cast<int32_t*>(delta), static_cast<int32_t*>(cnt),
+      rowwise::Rows{static_cast<const long long*>(row_off), 0}, n_rows, total,
+      0, static_cast<cudaStream_t>(stream)));
 }

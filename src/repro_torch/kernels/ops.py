@@ -85,10 +85,12 @@ def xor_delta_pairs(parents: Sequence[bytes], children: Sequence[bytes], *,
     """Delta-encode (or decode) many payload pairs in one launch.
 
     Pair ``i`` is ``(parents[i], children[i])`` of equal length; lengths may
-    differ between pairs.  Returns each pair's delta (of its own length) and
-    its count of nonzero 32-bit words — the same values one
-    :func:`xor_delta_bytes` call per pair gives.  Batches above
-    ``PAIRS_MAX_BYTES`` are split into several launches.
+    differ between pairs.  The pairs go to the ragged kernel as flat word
+    buffers, each pair zero-padded to whole words only, with a CSR of word
+    offsets.  Returns each pair's delta (of its own length) and its count of
+    nonzero 32-bit words — the same values one :func:`xor_delta_bytes` call
+    per pair gives.  Batches above ``PAIRS_MAX_BYTES`` are split into
+    several launches.
     """
     if len(parents) != len(children):
         raise ValueError(f"{len(parents)} parents but {len(children)} children")
@@ -102,31 +104,48 @@ def xor_delta_pairs(parents: Sequence[bytes], children: Sequence[bytes], *,
     n = len(parents)
     if n == 0:
         return [], np.empty(0, dtype=np.int32)
-    wb = 4 * max(1, -(-int(lens.max()) // 4))     # row bytes, word-padded
-    rows = max(1, PAIRS_MAX_BYTES // wb)
+    words = (lens + 3) // 4
+    ends = np.cumsum(words)
     out: List[bytes] = []
     counts = np.empty(n, dtype=np.int32)
-    for lo in range(0, n, rows):
-        hi = min(n, lo + rows)
-        d, cnt = xor_delta_batch(_pack(parents[lo:hi], lens[lo:hi], wb),
-                                 _pack(children[lo:hi], lens[lo:hi], wb),
-                                 device=dev)
-        flat = d.tobytes()
-        out.extend(flat[j * wb:j * wb + int(lens[lo + j])]
-                   for j in range(hi - lo))
-        counts[lo:hi] = cnt
+    lo = 0
+    while lo < n:
+        # at least one pair a launch, however long
+        hi = max(lo + 1, int(np.searchsorted(
+            ends, ends[lo] - words[lo] + PAIRS_MAX_BYTES // 4, "right")))
+        off = np.zeros(hi - lo + 1, dtype=np.int64)
+        np.cumsum(words[lo:hi], out=off[1:])
+        total = int(off[-1])
+        # parent words, child words (from a 16-byte boundary) and the
+        # offsets in one host buffer: one copy to the device
+        span = -(-total // 4) * 4
+        host = np.zeros(2 * span + 2 * len(off), dtype=np.int32)
+        host[:total] = _flat_words(parents[lo:hi], lens[lo:hi], words[lo:hi])
+        host[span:span + total] = _flat_words(children[lo:hi], lens[lo:hi],
+                                              words[lo:hi])
+        host[2 * span:] = off.view(np.int32)
+        buf = torch.from_numpy(host).to(dev)
+        d, cnt = _deltaenc.xor_delta_ragged(
+            buf[:total], buf[span:span + total],
+            buf[2 * span:].view(torch.int64))
+        flat = _to_host(d).tobytes()
+        out.extend(flat[4 * int(o):4 * int(o) + int(ln)]
+                   for o, ln in zip(off[:-1], lens[lo:hi]))
+        counts[lo:hi] = cnt.cpu().numpy()
+        lo = hi
     return out, counts
 
 
-def _pack(bufs: Sequence[bytes], lens: np.ndarray, wb: int) -> np.ndarray:
-    """Byte strings → zero-padded (N, wb/4) uint32 rows."""
-    if len(bufs) and (lens == wb).all():
-        flat = np.frombuffer(b"".join(bufs), dtype=np.uint8)
+def _flat_words(bufs: Sequence[bytes], lens: np.ndarray,
+                words: np.ndarray) -> np.ndarray:
+    """Byte strings → one flat int32 word buffer, each zero-padded to
+    ``words`` whole words."""
+    if (lens % 4 == 0).all():
+        raw = b"".join(bufs)
     else:
-        flat = np.zeros(len(bufs) * wb, dtype=np.uint8)
-        for j, b in enumerate(bufs):
-            flat[j * wb:j * wb + len(b)] = np.frombuffer(b, dtype=np.uint8)
-    return flat.view(np.uint32).reshape(len(bufs), wb // 4)
+        raw = b"".join(b.ljust(4 * int(w), b"\0")
+                       for b, w in zip(bufs, words.tolist()))
+    return np.frombuffer(raw, dtype=np.int32)
 
 
 def xor_delta_bytes(parent: bytes, child: bytes, *,

@@ -90,6 +90,19 @@ def xor_delta_ref(parent: torch.Tensor, child: torch.Tensor
     return delta, counts
 
 
+def xor_delta_ragged_ref(parent: torch.Tensor, child: torch.Tensor,
+                         row_off: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flat (T,) int32 ×2 and an (n + 1,) int64 CSR of word offsets
+    (``row_off[0] == 0``, ``row_off[-1] == T``) → (delta (T,) int32,
+    nonzero words per row (n,) int32)."""
+    delta = parent ^ child
+    seen = torch.zeros(delta.numel() + 1, dtype=torch.int64,
+                       device=delta.device)
+    seen[1:] = torch.cumsum(delta != 0, dim=0)
+    return delta, (seen[row_off[1:]] - seen[row_off[:-1]]).to(torch.int32)
+
+
 def popcount32_ref(v: torch.Tensor) -> torch.Tensor:
     """Per-word popcount of int32 words (read as uint32) → int64."""
     x = v.to(torch.int64) & _M32

@@ -78,7 +78,10 @@ class Optimizer:
                 g32 = g.to(f32)
                 m = c.b1 * m + (1 - c.b1) * g32
                 v = c.b2 * v + (1 - c.b2) * g32 * g32
-                u = (m / bc1) / (torch.sqrt(v / bc2) + c.eps)
+                # the sqrt in f64, rounded to f32: correctly rounded, as
+                # the reference's is (PyTorch's CPU f32 sqrt is not)
+                u = (m / bc1) / (torch.sqrt((v / bc2).double()).to(f32)
+                                 + c.eps)
                 u = u + c.weight_decay * p.to(f32)
                 return (p.to(f32) - c.lr * u).to(p.dtype), m, v
 

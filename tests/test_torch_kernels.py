@@ -78,9 +78,84 @@ def test_xor_delta_bytes_matches_reference(lp, lc):
     assert back == c.ljust(w, b"\0")
 
 
-def test_xor_delta_pairs_equals_per_pair_bytes(monkeypatch):
-    rng = np.random.default_rng(9)
-    lens = [256, 256, 0, 5, 64, 256, 131]
+# Row lengths (words) of the ragged kernel's cases: 64-word records with
+# lengths that are not a multiple of 4 words, zero-length rows, one word a
+# row, one very long row among short ones, all rows empty, no row at all.
+RAGGED = {"mixed": [64, 0, 3, 5, 64, 1, 7, 130, 0, 4, 65, 63, 2],
+          "one_word": [1] * 37,
+          "long_row": [5, 3, 20_001, 7, 64, 0],
+          "all_empty": [0, 0, 0],
+          "no_rows": []}
+
+
+def _ragged(case, seed):
+    """Flat uint32 parent/child words and the CSR of word offsets; about a
+    third of the child's words equal the parent's, and so does every third
+    row."""
+    rng = np.random.default_rng(seed)
+    lens = np.asarray(RAGGED[case], dtype=np.int64)
+    off = np.zeros(len(lens) + 1, dtype=np.int64)
+    np.cumsum(lens, out=off[1:])
+    total = int(off[-1])
+    p = rng.integers(0, 2**32, size=total, dtype=np.uint32)
+    c = rng.integers(0, 2**32, size=total, dtype=np.uint32)
+    same = rng.random(total) < 0.3
+    c[same] = p[same]
+    for r in range(0, len(lens), 3):
+        c[off[r]:off[r + 1]] = p[off[r]:off[r + 1]]
+    return p, c, off
+
+
+@pytest.mark.parametrize("shift", [0, 1, 3])
+@pytest.mark.parametrize("case", list(RAGGED))
+def test_xor_delta_ragged_matches_reference_row_by_row(case, shift):
+    """The ragged entry's plain version against ``repro.kernels.ref
+    .xor_delta_ref`` row by row; and the same call on (parent, delta)
+    decodes the child (the XOR is an involution), counting its nonzero
+    words."""
+    p, c, off = _ragged(case, seed=len(RAGGED[case]) * 7 + shift)
+    tp, tc, toff = _t(p), _t(c), torch.from_numpy(off)
+    if shift:
+        # the same words in views ``shift`` words into their storage
+        tp, tc = (torch.cat([torch.zeros(shift, dtype=t.dtype), t])[shift:]
+                  for t in (tp, tc))
+        assert tp.storage_offset() == tc.storage_offset() == shift
+    td, tn = tdelta.xor_delta_ragged(tp, tc, toff)
+    assert td.shape == tp.shape and tn.shape == (len(off) - 1,)
+    assert tn.dtype == torch.int32
+    for r in range(len(off) - 1):
+        lo, hi = int(off[r]), int(off[r + 1])
+        rd, rn = rref.xor_delta_ref(jnp.asarray(p[None, lo:hi]),
+                                    jnp.asarray(c[None, lo:hi]))
+        np.testing.assert_array_equal(_u(td)[lo:hi], np.asarray(rd)[0])
+        assert int(tn[r]) == int(np.asarray(rn)[0])
+    back, bn = tdelta.xor_delta_ragged(tp, td, toff)
+    np.testing.assert_array_equal(_u(back), c)
+    np.testing.assert_array_equal(
+        bn.numpy(), [np.count_nonzero(c[off[r]:off[r + 1]])
+                     for r in range(len(off) - 1)])
+
+
+def test_xor_delta_ragged_bad_inputs_raise():
+    w = torch.zeros(8, dtype=torch.int32)
+    off = torch.tensor([0, 3, 8])
+    with pytest.raises(ValueError, match="equal"):
+        tdelta.xor_delta_ragged(w, w[:7], off)
+    with pytest.raises(ValueError, match="int32"):
+        tdelta.xor_delta_ragged(w.long(), w.long(), off)
+    with pytest.raises(ValueError, match="row_off"):
+        tdelta.xor_delta_ragged(w, w, off.int())
+    with pytest.raises(ValueError, match="row_off"):
+        tdelta.xor_delta_ragged(w, w, torch.zeros(0, dtype=torch.int64))
+
+
+@pytest.mark.parametrize("lens", [
+    [256, 256, 0, 5, 64, 256, 131],      # mixed byte lengths, one empty
+    [256] * 9,                           # whole words: no padding
+    [1, 2, 3, 4, 5, 6, 7],               # each pair shorter than a vector
+    [4 * 20_001 + 3, 12, 0]])            # one very long pair
+def test_xor_delta_pairs_equals_per_pair_bytes(monkeypatch, lens):
+    rng = np.random.default_rng(sum(lens) + len(lens))
     parents = [rng.integers(0, 256, n, dtype=np.uint8).tobytes() for n in lens]
     children = [bytes(x ^ (i % 3 == 0) * 0xFF for x in p)
                 for i, p in enumerate(parents)]
@@ -272,7 +347,8 @@ def test_hash_family_is_the_reference_family():
 
 # ------------------------------------------------------------- and_popcount
 @pytest.mark.parametrize("N,W,pairwise", [(128, 128, False), (256, 256, True),
-                                          (128, 33, True), (128, 7, False)])
+                                          (128, 33, True), (128, 7, False),
+                                          (128, 513, True), (128, 513, False)])
 def test_and_popcount_matches_reference_kernel(N, W, pairwise):
     rng = np.random.default_rng(N * 7 + W + pairwise)
     bms = rng.integers(0, 2**32, size=(N, W), dtype=np.uint32)

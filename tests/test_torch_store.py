@@ -479,3 +479,89 @@ def test_all_partitioners_match_reference(branch, merge, retire):
     _same_partitioning(sp_r, sp_t)
     assert rpart.total_version_span(g, sp_r) == \
         tpart.total_version_span(t, sp_t)
+
+
+# ------------------------------------------------- xor_delta calls per build
+def _counting_pairs(monkeypatch):
+    """Record the pair count of every ``xor_delta_pairs`` call."""
+    calls = []
+    orig = tops.xor_delta_pairs
+
+    def counting(parents, children, **kw):
+        calls.append(len(parents))
+        return orig(parents, children, **kw)
+    monkeypatch.setattr(tops, "xor_delta_pairs", counting)
+    return calls
+
+
+def test_k3_build_and_compact_xor_every_pair_in_one_call(monkeypatch):
+    """At k=3 a build stages every chunk and XORs all of their delta pairs
+    in one ``xor_delta_pairs`` call, beside the one call of its sizing pass
+    (``compressed_subchunk_sizes``); a compaction (a rebuild at k>1) does
+    the same.  The blobs, maps and ``storage_stats()`` stay the
+    reference's."""
+    sessions, _ = _workload(31, p_d=0.1)
+    ref = R.RStore(R.RStoreConfig(capacity=CAPACITY, k=3), R.InMemoryKVS())
+    port = T.RStore(T.RStoreConfig(capacity=CAPACITY, k=3), T.InMemoryKVS(),
+                    device="cpu")
+    for rs in (ref, port):
+        for sess in sessions:
+            with rs.writer(flush_on_close=False) as w:
+                for op in sess:
+                    if op[0] == "root":
+                        w.init_root(op[1])
+                    else:
+                        w.commit(op[1], op[2], op[3])
+    calls = _counting_pairs(monkeypatch)
+    stagings = []
+    orig_stage = T.RStore._stage_chunk_writes
+
+    def counting_stage(self, chunks, *a, **kw):
+        stagings.append(len(chunks))
+        return orig_stage(self, chunks, *a, **kw)
+    monkeypatch.setattr(T.RStore, "_stage_chunk_writes", counting_stage)
+
+    ref.build()
+    port.build()
+    assert len(stagings) == 1 and stagings[0] == port.n_chunks > 1
+    assert len(calls) == 2 and min(calls) > 0      # sizing, then staging
+    assert ref.storage_stats() == port.storage_stats()
+    assert sorted(ref.kvs.scan()) == sorted(port.kvs.scan())
+
+    del calls[:], stagings[:]
+    for rs, keep in ((ref, R.keep_last(6)), (port, T.keep_last(6))):
+        rs.retain(keep)
+    rrep, trep = ref.compact(), port.compact()
+    assert trep.mode == rrep.mode == "rebuild"
+    assert len(stagings) == 1 and len(calls) == 2
+    assert ref.storage_stats() == port.storage_stats()
+    assert sorted(ref.kvs.scan()) == sorted(port.kvs.scan())
+
+
+@pytest.mark.parametrize("grouped", [False, True])
+def test_build_chunk_single_chunk_matches_reference(grouped):
+    """``build_chunk``, the one-chunk API (its own ``xor_delta_pairs``
+    call), gives the reference's chunk and map bytes."""
+    from repro.core import chunkstore as rc
+    from repro.core import subchunk as rsub
+    from repro_torch.core import chunkstore as tc
+    g, t = _graph_pair(0.1, 0.0, payloads=True, p_d=0.1, seed=8)
+    groups = [grp for grp in rsub.build_subchunks(g, 3) if len(grp) > 1][:12]
+    # the groups' records and some records of no group
+    rids = np.union1d(np.concatenate(groups), np.arange(20))
+    if not grouped:
+        groups = None
+    args = ({v: i for i, v in enumerate(g.versions)}, g.num_versions)
+    rch, rmap = rc.build_chunk(g, rids, 5, *args,
+                               g.record_version_index_csr(),
+                               subchunk_groups=groups)
+    tch, tmap = tc.build_chunk(t, rids, 5, *args,
+                               t.record_version_index_csr(),
+                               subchunk_groups=groups, device="cpu")
+    assert rch.to_bytes() == tch.to_bytes()
+    assert (rch.raw_bytes, rch.stored_bytes) == (tch.raw_bytes,
+                                                 tch.stored_bytes)
+    assert rmap.to_bytes() == tmap.to_bytes()
+    assert tch.payloads(device="cpu") == rch.payloads()
+    if grouped:
+        assert any(p >= 0 for sc in tch.subchunks for p in sc.parent_pos)

@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--seed N] [--base-log2 17] [--versions 64]
         [--k3-base-log2 16] [--k3-versions 32] [--ops-base-log2 19]
-        [--ops-versions 64] [--tr-layers 2]
+        [--ops-versions 64] [--tr-layers 2] [--sv-layers 0]
+        [--sv-registry-layers 2]
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``,
 then:
@@ -56,11 +57,36 @@ then:
    restored checkpoint; a partial restore (one bitmap_vm launch), the
    evolution of a block, ``retain_last(2)`` with compaction, int8 update
    compression, and the training launcher's crash and ``--resume``.
-6. Kernel phases: each kernel against its plain PyTorch version on the card,
+6. sv main path, model serving (``launch/serve.py`` and
+   ``examples/serve_demo.py``), deterministic algorithms throughout:
+   granite-moe-1b-a400m as registered (24 layers, d_model 1,024, 16/8 heads
+   of 64, 32 experts top-8 of width 512, vocab 49,155, tied embeddings,
+   bf16, capacity factor 1.25; ``--sv-layers`` cuts its depth for a quick
+   try) with random weights from a seeded generator, through ``Engine``:
+   3 waves of 8 prompts of 64 tokens from the synthetic pipeline, 32
+   generated tokens each, with prefill ms, decode ms per step, tokens/s
+   and peak device memory per wave and the device-idle share of one
+   profiled decode step.  Each wave's tokens must equal a manual prefill +
+   decode loop bit for bit, with every logit finite; prefill's
+   last-position logits must lie within 4 bf16 ulps of ``train_logits``'.
+   mamba2-130m and whisper-base (with its frames and cross caches) the
+   same way at full size, one wave each.  Every architecture's reduced
+   config (f32): prefill at 16 tokens and 4 teacher-forced decode steps
+   against the full forward (the reference's test), and the card's
+   prefill logits within 1e-4 of the CPU's on the same weights, TF32 off.
+   Then the versioned model registry: granite-moe at full width, its depth
+   cut to ``--sv-registry-layers`` (2 of 24, so that its two commits of
+   157,614,080 bf16 params fit the run's time), the init params committed
+   as v0, 5 AdamW steps (batch 4 x 64), v1; each version restored (Q1: one
+   KVS round trip, no bitmap program, bit-equal to the committed params),
+   restored as the demo's partial restore of every param tensor (one round
+   trip, one bitmap_vm launch) and served, its tokens equal to those of
+   the params in memory.
+7. Kernel phases: each kernel against its plain PyTorch version on the card,
    bit-exact, at the shapes the main paths gave it (``xor_delta`` at every
-   ragged launch of k3) and at the shapes named below, with device times (a
-   CUDA graph of 200 launches) and host-launched CUDA-event times beside
-   the bound.
+   ragged launch of k3, ``bitmap_vm`` at every program of k1, ops, tr and
+   sv) and at the shapes named below, with device times (a CUDA graph of 200
+   launches) and host-launched CUDA-event times beside the bound.
 
 Each kernel wrapper counts its own launches; all four counts are zeroed
 just before each main path and read just after it.  Every phase raises on
@@ -118,6 +144,14 @@ TR_ARCH = "smollm-360m"
 TR_BATCH, TR_SEQ = 8, 256
 TR_STEPS = 20
 TR_FORK_STEPS = 5
+# The sv path: the model served at full width (its depth is ``--sv-layers``),
+# the other families served at full size, ``launch/serve.py``'s traffic
+# (waves of batch x prompt tokens, tokens generated per prompt), and the
+# registry's training between its two versions (``examples/serve_demo.py``).
+SV_ARCH = "granite-moe-1b-a400m"
+SV_FAMILIES = ("mamba2-130m", "whisper-base")
+SV_BATCH, SV_PROMPT, SV_GEN, SV_WAVES = 8, 64, 32, 3
+SV_REG_STEPS, SV_REG_BATCH, SV_REG_SEQ = 5, 4, 64
 
 
 def log(*a) -> None:
@@ -477,7 +511,8 @@ def cold_ms(torch, fn, iters: int = 20) -> float:
 def device_busy(torch, fn):
     """(device-busy seconds, wall seconds, top device ops) of one ``fn()``
     under torch.profiler with CUDA activity: the union of the time spans of
-    every device-side event (kernels and copies) over the host-clock span."""
+    every device-side event (kernels and copies) over the host-clock span;
+    the top ops follow the count of device events."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -499,8 +534,9 @@ def device_busy(torch, fn):
     per_name: Dict[str, float] = {}
     for e in dev:
         per_name[e.name] = per_name.get(e.name, 0) + e.time_range.elapsed_us()
-    top = "; ".join(f"{k} {us / 1e3:.3f} ms" for k, us in sorted(
-        per_name.items(), key=lambda kv: -kv[1])[:4])
+    top = f"{len(dev)} device events; " + "; ".join(
+        f"{k} {us / 1e3:.3f} ms" for k, us in sorted(
+            per_name.items(), key=lambda kv: -kv[1])[:4])
     return busy_us / 1e6, wall, top
 
 
@@ -1487,6 +1523,301 @@ def main_path_tr(args, torch, dev, K):
     return launches, tr_program, xor_shapes[0]
 
 
+def bf16_ulp(x: float) -> float:
+    """One bfloat16 ulp at magnitude ``x`` (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(abs(x))) - 7)
+
+
+def serve_waves(torch, dev, cfg, tag: str, seed: int, waves: int) -> None:
+    """One model through ``Engine`` at ``launch/serve.py``'s traffic: waves
+    of SV_BATCH prompts of SV_PROMPT tokens from the synthetic pipeline (the
+    enc-dec family with its frames), SV_GEN tokens each.  Each wave checks
+    ``Engine.generate`` against a manual prefill + decode loop bit for bit
+    and every logit for finiteness; the first wave also holds prefill's
+    last-position logits against ``train_logits`` there (4 bf16 ulps of the
+    largest logit).  Then one decode step runs under the profiler."""
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.models.model import build_model, init_params
+    from repro_torch.serve.engine import Engine
+    model = build_model(cfg)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                         dev)
+    max_len = SV_PROMPT + SV_GEN + 8
+    eng = Engine(cfg, params, max_len=max_len)
+    V = cfg.vocab_size
+    log(f"[sv] {tag}: {cfg.name}, {cfg.n_layers} layers"
+        + (f" + {cfg.n_encoder_layers} encoder" if cfg.n_encoder_layers
+           else "")
+        + f", d_model {cfg.d_model}, {cfg.param_count()} params, "
+        f"{cfg.dtype}, capacity_factor {cfg.capacity_factor}; {waves} waves"
+        f" of {SV_BATCH} x {SV_PROMPT}-token prompts, {SV_GEN} tokens each, "
+        f"max_len {max_len}")
+    for wave in range(waves):
+        batch = synthetic_batch(cfg, wave, SV_BATCH, SV_PROMPT, device=dev)
+        batch = {k: v for k, v in batch.items() if k in ("tokens", "frames")}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        toks = eng.generate(batch, SV_GEN)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            logits, caches = model.prefill(params, batch, max_len=max_len)
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            finite = torch.isfinite(logits).all()
+            tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+            manual, step_ms = [tok], []
+            for pos in range(SV_PROMPT, SV_PROMPT + SV_GEN - 1):
+                # decode_step, its logits kept for the finiteness check
+                t0 = time.perf_counter()
+                lg, caches = model.decode_logits(params, caches, tok, pos)
+                tok = torch.argmax(lg[:, -1], -1).to(torch.int32)[:, None]
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                finite &= torch.isfinite(lg).all()
+                manual.append(tok)
+            if wave == 0:
+                full, _ = model.train_logits(params, batch)
+                a = full[:, -1, :V].float()
+                b = logits[:, 0, :V].float()
+                err = float((a - b).abs().max())
+                tol = 4 * bf16_ulp(float(a.abs().max()))
+                if not err <= tol:
+                    raise AssertionError(f"sv {tag}: prefill logits differ "
+                                         f"from train_logits by {err} > "
+                                         f"{tol}")
+                log(f"[sv] {tag}: prefill's last-position logits vs "
+                    f"train_logits: max |diff| {err!r} <= {tol!r} (4 bf16 "
+                    "ulps of the largest logit)")
+                del full
+        if not torch.equal(toks, torch.cat(manual, dim=1)):       # check 1
+            raise AssertionError(f"sv {tag} wave {wave}: Engine.generate "
+                                 "differs from the manual decode loop")
+        if not bool(finite):                                       # check 2
+            raise AssertionError(f"sv {tag} wave {wave}: non-finite logits")
+        med = sorted(step_ms)[len(step_ms) // 2]
+        tps = SV_BATCH * SV_GEN / gen_s
+        log(f"[sv] {tag} wave {wave}: generate {gen_s * 1e3:.3f} ms "
+            f"({tps:.1f} tokens/s); prefill {prefill_ms:.3f} ms, decode "
+            f"median {med:.3f} ms/step over {len(step_ms)} steps (min "
+            f"{min(step_ms):.3f}, max {max(step_ms):.3f}); peak device memory"
+            f" {peak} bytes; tokens equal the manual loop, logits finite")
+    with torch.no_grad():
+        busy_s, wall_s, top = device_busy(torch, lambda: model.decode_step(
+            params, caches, tok, SV_PROMPT + SV_GEN - 1))
+    log(f"[sv] {tag}: profiled decode step: {wall_s * 1e3:.3f} ms wall, "
+        f"device busy {busy_s * 1e3:.3f} ms ({busy_s / wall_s:.3%}), idle "
+        f"{1 - busy_s / wall_s:.3%}; top device ops: {top}")
+
+
+def reduced_arch_checks(torch, dev, seed: int) -> None:
+    """Every architecture's ``.reduced()`` config (f32) on the card: the
+    reference's ``test_arch_decode_matches_full_forward`` check (prefill
+    at 16 tokens within rtol 2e-2/atol 2e-3 of the full forward, then 4
+    teacher-forced decode steps whose greedy tokens equal the full
+    forward's), and the card's prefill logits within 1e-4 of the port's
+    CPU run on the same weights, TF32 off."""
+    from repro_torch import tree as TR
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.models.model import build_model, init_params
+    B, S, S0 = 2, 32, 16
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for name in ARCHS:
+            cfg = ARCHS[name].reduced()
+            model = build_model(cfg)
+            t0 = time.perf_counter()
+            p_cpu = init_params(cfg, torch.Generator().manual_seed(seed),
+                                "cpu")
+            params = TR.tree_map(lambda t: t.to(dev), p_cpu)
+            b_cpu = synthetic_batch(cfg, 0, B, S, device="cpu")
+            batch = {k: v.to(dev) for k, v in b_cpu.items()}
+            P = cfg.n_prefix_embeds if cfg.family == "vlm" else 0
+            V = cfg.vocab_size
+            with torch.no_grad():
+                full, _ = model.train_logits(params, batch)
+                full = full[..., :V].cpu().numpy()
+                pre = dict(batch, tokens=batch["tokens"][:, :S0])
+                l0, caches = model.prefill(params, pre)
+                l0 = l0[:, 0, :V].cpu()
+                np.testing.assert_allclose(l0.numpy(), full[:, P + S0 - 1],
+                                           rtol=2e-2, atol=2e-3)
+                for t in range(S0, S0 + 4):
+                    nxt, caches = model.decode_step(
+                        params, caches, batch["tokens"][:, t:t + 1], t + P)
+                    want = np.argmax(full[:, P + t], axis=-1)
+                    if not np.array_equal(nxt.cpu().numpy(), want):
+                        raise AssertionError(f"sv reduced {name}: decode "
+                                             f"step {t} differs from the "
+                                             "full forward")
+                l_cpu, _ = model.prefill(
+                    p_cpu, dict(b_cpu, tokens=b_cpu["tokens"][:, :S0]))
+                err = float((l0 - l_cpu[:, 0, :V]).abs().max())
+            if not err <= 1e-4:
+                raise AssertionError(f"sv reduced {name}: card vs CPU prefill"
+                                     f" logits differ by {err}")
+            log(f"[sv] reduced {name}: prefill + 4 decode steps match the "
+                f"full forward; card vs CPU prefill logits max |diff| "
+                f"{err!r}; {time.perf_counter() - t0:.3f} s")
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+
+
+def main_path_sv(args, torch, dev, K):
+    """Model serving on the card, after ``launch/serve.py`` and
+    ``examples/serve_demo.py``: granite-moe-1b-a400m as registered (depth
+    ``--sv-layers``) through ``Engine``; mamba2-130m and whisper-base at
+    full size; every architecture's reduced config against its full forward
+    and the CPU; then the versioned model registry (granite-moe at full
+    width, depth cut to ``--sv-registry-layers``): the init params
+    committed as v0, 5 AdamW steps, v1, and each version restored (Q1: one
+    KVS round trip and no bitmap program), restored again as the demo's
+    partial restore of every param tensor (one round trip, one bitmap_vm
+    launch) and served.  Deterministic algorithms throughout.  Returns the
+    path's launch counts and the bitmap programs of its restores."""
+    from repro_torch import tree as TR
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import Engine
+    from repro_torch.train import checkpoint as ckmod
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_step import init_state, make_train_step
+
+    def registered(name, **kw):
+        c = ARCHS[name]
+        return c.__class__(**{**c.__dict__, "remat": "none", **kw})
+
+    orig_vm = K.bitmap.bitmap_vm
+    vm_inputs = []
+
+    def recording_vm(regs, prog):
+        vm_inputs.append((regs.clone(), prog.clone()))
+        return orig_vm(regs, prog)
+    K.bitmap.bitmap_vm = recording_vm
+    torch.use_deterministic_algorithms(True)
+    try:
+        zero_launches(K)
+        base = ARCHS[SV_ARCH]
+        serve_waves(torch, dev, registered(
+            SV_ARCH, n_layers=args.sv_layers or base.n_layers), "granite",
+            args.seed, SV_WAVES)
+        gc.collect()
+        torch.cuda.empty_cache()
+        for name in SV_FAMILIES:
+            serve_waves(torch, dev, registered(name), name.split("-")[0],
+                        args.seed, 1)
+            gc.collect()
+            torch.cuda.empty_cache()
+        reduced_arch_checks(torch, dev, args.seed)
+
+        # ---- the versioned model registry
+        cfg = registered(SV_ARCH, n_layers=args.sv_registry_layers)
+        model, opt = build_model(cfg), make_optimizer(cfg)
+        step_fn = make_train_step(model, opt)
+        state = init_state(cfg, opt, torch.Generator(device=dev)
+                           .manual_seed(args.seed), dev)
+        ckpt = ckmod.VersionedCheckpointer(device=dev)
+        kvs = ckpt.rs.kvs
+        n_bytes = sum(t.numel() * t.element_size()
+                      for t in TR.leaves(state["params"]))
+        log(f"[sv] registry: {cfg.name} at full width, {cfg.n_layers} layers"
+            f" (cut from {base.n_layers}), {cfg.param_count()} params, "
+            f"{n_bytes} bytes of params ({cfg.dtype}); params only are "
+            "committed")
+
+        def commit(params, parents, tag):
+            t0 = time.perf_counter()
+            vid = ckpt.commit({"params": params}, parents=parents, tag=tag)
+            ckpt.rs.flush()
+            return vid, time.perf_counter() - t0
+
+        versions = []
+        v0, s0 = commit(state["params"], (), "init")
+        versions.append((v0, state["params"], s0))
+        losses = []
+        for i in range(SV_REG_STEPS):
+            state, m = step_fn(state, synthetic_batch(
+                cfg, i, SV_REG_BATCH, SV_REG_SEQ, device=dev))
+            losses.append(float(m["loss"]))
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"sv registry: non-finite loss {losses}")
+        v1, s1 = commit(state["params"], (v0,), "tuned")
+        versions.append((v1, state["params"], s1))
+        del state
+        log(f"[sv] registry: {SV_REG_STEPS} AdamW steps (batch "
+            f"{SV_REG_BATCH} x {SV_REG_SEQ}), losses {losses[0]!r} -> "
+            f"{losses[-1]!r}")
+        prompts = {"tokens": synthetic_batch(cfg, 0, SV_BATCH, SV_PROMPT,
+                                             device=dev)["tokens"]}
+        max_len = SV_PROMPT + SV_GEN + 8
+        for vid, want, commit_s in versions:
+            # Q1, the full restore: one round trip, no bitmap program
+            q0, l0 = kvs.stats.n_queries, K.bitmap.LAUNCHES
+            t0 = time.perf_counter()
+            got = ckpt.restore(vid, like={"params": want})["params"]
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            rts, vms = kvs.stats.n_queries - q0, K.bitmap.LAUNCHES - l0
+            if rts != 1 or vms != 0:                               # check 3
+                raise AssertionError(f"sv registry v{vid}: restore made {rts}"
+                                     f" round trips, {vms} bitmap_vm "
+                                     "launches")
+            if not equal_trees(torch, TR, got, want):              # check 4
+                raise AssertionError(f"sv registry v{vid}: the restore "
+                                     "differs from the committed params")
+            # the demo's partial restore of every param tensor: one batched
+            # session of Q.records queries, one round trip, one launch
+            q0, l0 = kvs.stats.n_queries, K.bitmap.LAUNCHES
+            t0 = time.perf_counter()
+            part = ckpt.restore_tensors(vid, ["params"])
+            part_s = time.perf_counter() - t0
+            prts, pvms = kvs.stats.n_queries - q0, K.bitmap.LAUNCHES - l0
+            by_path = {TR.path_str(p): t for p, t in
+                       TR.leaves_with_paths({"params": want})}
+            if (prts != 1 or pvms != 1 or sorted(part) != sorted(by_path)
+                    or not all(torch.equal(torch.as_tensor(a),
+                                           by_path[k].cpu())
+                               for k, a in part.items())):         # check 5
+                raise AssertionError(f"sv registry v{vid}: partial restore: "
+                                     f"{prts} round trips, {pvms} bitmap_vm "
+                                     "launches, or other values")
+            del part
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks = Engine(cfg, got, max_len=max_len).generate(prompts, SV_GEN)
+            torch.cuda.synchronize()
+            gen_s = time.perf_counter() - t0
+            mem = Engine(cfg, want, max_len=max_len).generate(prompts, SV_GEN)
+            if not torch.equal(toks, mem):                         # check 6
+                raise AssertionError(f"sv registry v{vid}: the restored "
+                                     "model serves other tokens")
+            log(f"[sv] registry v{vid}: commit + flush {commit_s:.3f} s "
+                f"({n_bytes / commit_s / 1e6:.2f} MB/s); restore "
+                f"{restore_s:.3f} s ({rts} KVS round trip, no bitmap "
+                f"program), bit-equal; partial restore of "
+                f"{len(by_path)} tensors {part_s:.3f} s ({prts} round trip, "
+                f"{pvms} bitmap_vm launch), equal; generate "
+                f"{gen_s * 1e3:.3f} ms ({SV_BATCH * SV_GEN / gen_s:.1f} "
+                "tokens/s), tokens equal the in-memory model's")
+        launches = read_launches(K)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        K.bitmap.bitmap_vm = orig_vm
+    log(f"[sv] launches: {json.dumps(launches)}")
+    if launches["bitmap_vm"] <= 0:
+        raise AssertionError(f"sv: bitmap_vm never launched: {launches}")
+    return launches, vm_inputs
+
+
 class Bench:
     """Shared tools of the kernel phases: seeded random words on the card,
     exact comparison, CUDA-event times of a C entry point, and the bound."""
@@ -1659,7 +1990,10 @@ def vm_and_xor_phases(B: Bench, K, bitmap_inputs, delta_inputs,
           "tr_partial_restore": {k: dict(rows)["tr partial restore 0"][k]
                                  for k in ("ms", "event_ms", "cold_ms",
                                            "plain_ms", "bound_ms", "S", "W",
-                                           "P")}}
+                                           "P")},
+          "sv_restore_1": {k: dict(rows)["sv restore 1"][k]
+                           for k in ("ms", "event_ms", "cold_ms", "plain_ms",
+                                     "bound_ms", "S", "W", "P")}}
 
     # ---- xor_delta: the ragged entry at every launch the k3 path made
     # (its build's and compaction's, and its waves' decode levels), then the
@@ -1948,6 +2282,11 @@ def main() -> int:
     ap.add_argument("--tr-layers", type=int, default=2,
                     help="tr's depth (smollm-360m has 32; cut so the whole "
                     "run fits its time)")
+    ap.add_argument("--sv-layers", type=int, default=0,
+                    help="sv's served depth (0: granite-moe's registered 24)")
+    ap.add_argument("--sv-registry-layers", type=int, default=2,
+                    help="the sv registry's depth (granite-moe has 24; cut "
+                    "so its two commits fit the run's time)")
     args = ap.parse_args()
     # cuBLAS is deterministic only with a fixed workspace, set before its
     # first call; the tr path's bit-identical resume depends on it
@@ -2005,12 +2344,16 @@ def main() -> int:
     launches["tr"], tr_bitmap_inputs, tr_xor_shape = main_path_tr(
         args, torch, dev, K)
     free("tr")
+    launches["sv"], sv_bitmap_inputs = main_path_sv(args, torch, dev, K)
+    free("sv")
     bitmap_inputs = ([(f"k1 wave {i}", r, p)
                       for i, (r, p) in enumerate(bitmap_inputs)]
                      + [(f"ops wave {i}", r, p)
                         for i, (r, p) in enumerate(ops_bitmap_inputs)]
                      + [(f"tr partial restore {i}", r, p)
-                        for i, (r, p) in enumerate(tr_bitmap_inputs)])
+                        for i, (r, p) in enumerate(tr_bitmap_inputs)]
+                     + [(f"sv restore {i}", r, p)
+                        for i, (r, p) in enumerate(sv_bitmap_inputs)])
     B = Bench(torch, dev)
     kernels = vm_and_xor_phases(B, K, bitmap_inputs, delta_inputs,
                                 tr_xor_shape, launches)

@@ -17,9 +17,10 @@ from repro_torch.core.partition import ShinglePartitioner
 from repro_torch.data.pipeline import synthetic_batch
 from repro_torch.interop import state_from_reference
 from repro_torch.kernels import ops
+from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
 from repro_torch.launch.mesh import make_sharded_backend
-from repro_torch.models.model import init_params
+from repro_torch.models.model import init_params, zero_cache
 from repro_torch.train.checkpoint import VersionedCheckpointer
 from repro_torch.train.optimizer import make_optimizer
 from repro_torch.train.train_step import init_state
@@ -43,7 +44,7 @@ def test_port_imports_no_jax_and_no_reference():
               "configs", "configs.registry", "configs.shapes",
               "configs.smollm_360m", "data.pipeline", "train.optimizer",
               "train.train_step", "train.checkpoint", "train.grad_compress",
-              "launch.train"):
+              "launch.train", "serve.engine", "launch.serve"):
         assert "repro_torch." + m in mods, m
     code = (
         "import importlib, sys\n"
@@ -94,6 +95,8 @@ def _one_version_graph() -> VersionGraph:
     lambda: synthetic_batch(ARCHS["smollm-360m"].reduced(), 0, 2, 8),
     lambda: state_from_reference({"w": np.zeros(2, np.float32)}),
     lambda: launch_train.run(["--reduced", "--steps", "1"]),
+    lambda: launch_serve.run(["--reduced", "--batch", "1", "--gen", "2"]),
+    lambda: zero_cache(ARCHS["smollm-360m"].reduced(), 1, 4),
 ])
 def test_default_device_is_the_card(entry):
     """With no device given, an entry point asks for CUDA and raises here

@@ -228,28 +228,15 @@ def test_padded_vocab_is_masked_like_the_reference():
     assert t == pytest.approx(r, rel=1e-5)
 
 
-@pytest.mark.parametrize("what", ["moe", "ssm", "hybrid", "vlm", "encdec",
-                                  "prefill", "decode", "blockwise",
-                                  "remat_dots"])
-def test_next_slice_paths_raise(what):
-    """What the models/serving slice brings (ROADMAP item 5) raises
-    NotImplementedError naming it, never another code path."""
-    names = {"moe": "granite-moe-1b-a400m", "ssm": "mamba2-130m",
-             "hybrid": "jamba-1.5-large-398b", "vlm": "internvl2-26b",
-             "encdec": "whisper-base"}
-    kw = {"blockwise": {"attn_impl": "blockwise"},
-          "remat_dots": {"remat": "dots"}}.get(what, {})
-    cfg = small(names.get(what, "smollm-360m"), **kw)[1]
-    model = build_model(cfg)
+def test_shard_map_moe_raises_naming_item_3():
+    """The expert-parallel MoE needs a device mesh: it raises
+    NotImplementedError naming the sharding slice, never another code
+    path."""
+    cfg = small("granite-moe-1b-a400m", moe_impl="shard_map")[1]
     params = init_params(cfg, torch.Generator().manual_seed(0), CPU)
     batch = synthetic_batch(cfg, 0, 2, 16, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
-        if what == "prefill":
-            model.prefill(params, batch)
-        elif what == "decode":
-            model.decode_step(params, None, batch["tokens"][:, :1], 0)
-        else:
-            model.loss(params, batch)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 3"):
+        build_model(cfg).loss(params, batch)
 
 
 def test_state_interop_round_trips_bf16():

@@ -2,8 +2,9 @@
 (``tests/test_train_system.py``) run against it on the CPU: optimizers,
 RStore-versioned checkpointing (commit/restore/branch/evolution),
 crash-restart equivalence, gradient compression, data-pipeline
-determinism.  The reference's serving-engine and elastic-restore cases come
-with their slices (ROADMAP items 5 and 6)."""
+determinism.  The reference's serving-engine case is in
+``test_torch_serve.py``; its elastic-restore case needs a device mesh and
+comes with the sharding slice (ROADMAP item 3)."""
 import numpy as np
 import pytest
 import torch

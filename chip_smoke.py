@@ -82,7 +82,20 @@ then:
    restored as the demo's partial restore of every param tensor (one round
    trip, one bitmap_vm launch) and served, its tokens equal to those of
    the params in memory.
-7. Kernel phases: each kernel against its plain PyTorch version on the card,
+7. sd main path, sharding (``launch/mesh.py``, ``sharding/rules.py``,
+   ``train/elastic.py``, ``moe_shard_map``, ``launch/dryrun.py``) on a (1, 1)
+   mesh of one NCCL rank: ``restore_for_mesh`` of tr's newest checkpoint
+   version (every leaf a ``DTensor`` on the card, bit-equal to the
+   restored state) and one train step of that state under ``mesh_env``,
+   bit-identical to the plain step; granite-moe-1b-a400m at full width and
+   depth, one 8 x 64 prefill through ``moe_shard_map``'s local branch (its
+   ``OPTIMIZED`` prefill config) and one with ``DTensor`` params placed by
+   ``tree_pspecs``, each within 4 bf16 ulps of the plain prefill's
+   last-position logits with equal argmax tokens; one dry-run cell
+   (granite-moe x decode_32k on the 256-GPU mesh of a fake process group)
+   as a subprocess.  It launches no kernel; its NCCL group is destroyed
+   before the kernel phases.
+8. Kernel phases: each kernel against its plain PyTorch version on the card,
    bit-exact, at the shapes the main paths gave it (``xor_delta`` at every
    ragged launch of k3, ``bitmap_vm`` at every program of k1, ops, tr and
    sv) and at the shapes named below, with device times (a CUDA graph of 200
@@ -152,6 +165,8 @@ SV_ARCH = "granite-moe-1b-a400m"
 SV_FAMILIES = ("mamba2-130m", "whisper-base")
 SV_BATCH, SV_PROMPT, SV_GEN, SV_WAVES = 8, 64, 32, 3
 SV_REG_STEPS, SV_REG_BATCH, SV_REG_SEQ = 5, 4, 64
+# The sd path's dry-run cell: one (architecture, shape) on the 256-GPU mesh.
+SD_DRY_ARCH, SD_DRY_SHAPE = "granite-moe-1b-a400m", "decode_32k"
 
 
 def log(*a) -> None:
@@ -1252,8 +1267,10 @@ def main_path_tr(args, torch, dev, K):
     a restore from the store, a bit-identical resume, a fork, partial
     restore, evolution, retention, update compression, and the training
     launcher's crash and resume.  Returns the path's launch counts, the
-    bitmap program of its partial restore and the shape of its
-    ``xor_delta_stats`` launch."""
+    bitmap program of its partial restore, the shape of its
+    ``xor_delta_stats`` launch and what path sd restores: the checkpointer,
+    its newest version, the state it restores like, the config and the
+    optimizer."""
     import tempfile
     from repro_torch import tree as TR
     from repro_torch.configs import ARCHS
@@ -1520,7 +1537,8 @@ def main_path_tr(args, torch, dev, K):
     if launches["bitmap_vm"] <= 0 or launches["xor_delta"] <= 0:
         raise AssertionError(f"tr: a kernel of the path never launched: "
                              f"{launches}")
-    return launches, tr_program, xor_shapes[0]
+    return launches, tr_program, xor_shapes[0], (ckpt, v_fork, state0, cfg,
+                                                 opt)
 
 
 def bf16_ulp(x: float) -> float:
@@ -1816,6 +1834,188 @@ def main_path_sv(args, torch, dev, K):
     if launches["bitmap_vm"] <= 0:
         raise AssertionError(f"sv: bitmap_vm never launched: {launches}")
     return launches, vm_inputs
+
+
+def main_path_sd(args, torch, dev, K, tr_ckpt):
+    """Sharding on the card, on a (1, 1) mesh of one NCCL rank
+    (``make_debug_mesh``): an elastic restore of tr's newest checkpoint
+    (every param a ``DTensor`` placed by the rules, every leaf bit-equal to
+    the restored state, its shard on the card) and one train step of that
+    state under ``mesh_env``, bit-identical to the plain step; then
+    granite-moe-1b-a400m at full width and depth, one SV_BATCH x SV_PROMPT
+    prefill through ``moe_shard_map``'s local branch (its ``OPTIMIZED``
+    prefill config) and one with its params as ``DTensor``s placed by
+    ``tree_pspecs``, each against the plain prefill; then one dry-run cell
+    (``launch/dryrun.py``, granite-moe decode_32k on the 256-GPU mesh of a
+    fake process group) as a subprocess.  Deterministic algorithms, as tr
+    runs them.  The NCCL group is destroyed before returning.  Returns the
+    path's launch counts (it runs no kernel of its own)."""
+    import dataclasses
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from repro_torch import tree as TR
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.registry import OPTIMIZED
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.sharding.rules import mesh_env, rules_for
+    from repro_torch.train.elastic import restore_for_mesh
+    from repro_torch.train.train_step import make_train_step
+
+    ckpt, version, like, cfg, opt = tr_ckpt
+    torch.use_deterministic_algorithms(True)
+    zero_launches(K)
+    mesh = make_debug_mesh(1, 1)
+    try:
+        log(f"[sd] mesh {mesh}, backend {dist.get_backend()}, world "
+            f"{dist.get_world_size()}")
+
+        def place(env, t, axes):
+            return distribute_tensor(t, mesh, env.sharding_for(t.shape, axes))
+
+        # ---- 1. elastic restore of tr's newest version, and a train step
+        t0 = time.perf_counter()
+        state = restore_for_mesh(ckpt, version, like, cfg, opt, mesh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        host = ckpt.restore(version, like=like)
+        pairs = list(zip(TR.leaves(state), TR.leaves(host)))
+        for d, h in pairs:                                          # check 1
+            if not (isinstance(d, DTensor) and d.to_local().device == dev
+                    and d.dtype == h.dtype and torch.equal(d.full_tensor(),
+                                                           h)):
+                raise AssertionError("sd: a restored leaf is not the "
+                                     "restored state on the card")
+        log(f"[sd] restore_for_mesh(v{version}) of {cfg.name} (width "
+            f"{cfg.d_model}, {cfg.n_layers} layers): {restore_s:.3f} s, "
+            f"{len(pairs)} leaves, each a DTensor on the card whose "
+            "full_tensor() equals the restored state bit for bit")
+        step_fn = make_train_step(M.build_model(cfg), opt)
+        batch = synthetic_batch(cfg, 0, TR_BATCH, TR_SEQ, device=dev)
+        t0 = time.perf_counter()
+        want, m_want = step_fn(host, batch)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        with mesh_env(mesh, rules_for(cfg, mesh)) as env:
+            dbatch = {k: place(env, v, ("batch",) + (None,) * (v.ndim - 1))
+                      for k, v in batch.items()}
+            t0 = time.perf_counter()
+            got, m_got = step_fn(state, dbatch)
+            torch.cuda.synchronize()
+            dt_ms = (time.perf_counter() - t0) * 1e3
+        loss_w, loss_g = float(m_want["loss"]), float(
+            m_got["loss"].full_tensor())
+        same = all(torch.equal(g.full_tensor() if isinstance(g, DTensor)
+                               else g, w) for g, w in
+                   zip(TR.leaves(got), TR.leaves(want)))
+        if loss_g != loss_w or not same:                          # check 2
+            raise AssertionError(f"sd: the DTensor train step differs from "
+                                 f"the plain one (loss {loss_g!r} vs "
+                                 f"{loss_w!r}, state equal {same})")
+        log(f"[sd] one train step of the DTensor state under mesh_env: loss "
+            f"{loss_g!r}, params/mu/nu/step equal the plain step's bit for "
+            f"bit; {dt_ms:.3f} ms (plain {plain_ms:.3f} ms)")
+        del state, host, got, want, pairs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- 2. granite-moe at full width and depth, three prefills
+        base = ARCHS[SV_ARCH]
+        gcfg = base.__class__(**{**base.__dict__, "remat": "none"})
+        sm_cfg = dataclasses.replace(gcfg, **OPTIMIZED[SV_ARCH]["prefill"])
+        params = M.init_params(gcfg, torch.Generator(device=dev)
+                               .manual_seed(args.seed), dev)
+        tokens = synthetic_batch(gcfg, 0, SV_BATCH, SV_PROMPT,
+                                 device=dev)["tokens"]
+        V = gcfg.vocab_size
+        calls = {"moe_shard_map": 0, "moe": 0}
+        orig_sm, orig_moe = M.moe_shard_map, L.moe
+
+        def counting(name, fn):
+            def run(*a, **kw):
+                calls[name] += 1
+                return fn(*a, **kw)
+            return run
+
+        def prefill(cfg_, params_, batch_):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                logits, _ = M.build_model(cfg_).prefill(params_, batch_)
+            logits = logits.full_tensor() if isinstance(logits, DTensor) \
+                else logits
+            torch.cuda.synchronize()
+            return (logits[:, -1, :V].float(),
+                    (time.perf_counter() - t0) * 1e3,
+                    torch.cuda.max_memory_allocated())
+
+        ref, ref_ms, ref_peak = prefill(gcfg, params, {"tokens": tokens})
+        tol = 4 * bf16_ulp(float(ref.abs().max()))
+        M.moe_shard_map = counting("moe_shard_map", orig_sm)
+        L.moe = counting("moe", orig_moe)
+        try:
+            with mesh_env(mesh, rules_for(sm_cfg, mesh)):
+                sm, sm_ms, sm_peak = prefill(sm_cfg, params,
+                                             {"tokens": tokens})
+        finally:
+            M.moe_shard_map, L.moe = orig_sm, orig_moe
+        n_moe = gcfg.n_layers
+        if calls != {"moe_shard_map": n_moe, "moe": 0}:            # check 3
+            raise AssertionError(f"sd: moe_shard_map's local branch did not "
+                                 f"run in every layer: {calls}")
+        with mesh_env(mesh, rules_for(gcfg, mesh)) as env:
+            dparams = TR.tree_map(lambda t, pl: distribute_tensor(t, mesh, pl),
+                                  params, L.tree_pspecs(M.param_defs(gcfg),
+                                                        env))
+            dt, dt_ms, dt_peak = prefill(gcfg, dparams, {
+                "tokens": place(env, tokens, ("batch", None))})
+        for what, got_, ms, peak in (("shard_map", sm, sm_ms, sm_peak),
+                                     ("DTensor params", dt, dt_ms, dt_peak)):
+            err = float((got_ - ref).abs().max())
+            same_tok = torch.equal(got_.argmax(-1), ref.argmax(-1))
+            if not (err <= tol and same_tok):                     # check 4
+                raise AssertionError(f"sd: granite prefill through {what}: "
+                                     f"max |diff| {err} > {tol} or other "
+                                     "argmax tokens")
+            log(f"[sd] granite prefill ({gcfg.n_layers} layers, "
+                f"{SV_BATCH} x {SV_PROMPT}) through {what}: last-position "
+                f"logits max |diff| {err!r} <= {tol!r} (4 bf16 ulps of the "
+                f"largest logit), argmax tokens equal; {ms:.3f} ms, peak "
+                f"device memory {peak} bytes")
+        log(f"[sd] plain granite prefill: {ref_ms:.3f} ms, peak device "
+            f"memory {ref_peak} bytes; moe_shard_map ran its local branch in "
+            f"all {calls['moe_shard_map']} MoE layers")
+        del params, dparams
+        launches = read_launches(K)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 3. one dry-run cell, in a process of its own (a fake group)
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+           SD_DRY_ARCH, "--shape", SD_DRY_SHAPE]
+    env_ = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+                CUDA_VISIBLE_DEVICES="")
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, env=env_, capture_output=True,
+                         text=True, timeout=300)
+    dry_s = time.perf_counter() - t0
+    lines = [x for x in out.stdout.splitlines() if x.startswith("{")]
+    rec = json.loads(lines[-1]) if lines else {}
+    if out.returncode != 0 or rec.get("status") != "ok":          # check 5
+        raise AssertionError(f"sd: the dry run failed (exit "
+                             f"{out.returncode}): {out.stdout[-2000:]} "
+                             f"{out.stderr[-2000:]}")
+    log(f"[sd] dry run {' '.join(cmd[2:])}: {dry_s:.1f} s, exit 0")
+    log(f"[sd] dry run record: {lines[-1]}")
+    log(f"[sd] launches: {json.dumps(launches)} (sd has no kernel of its "
+        "own)")
+    return launches
 
 
 class Bench:
@@ -2341,11 +2541,14 @@ def main() -> int:
     free("k3")
     launches["ops"], ops_bitmap_inputs = main_path_ops(args, torch, dev, T, K)
     free("ops")
-    launches["tr"], tr_bitmap_inputs, tr_xor_shape = main_path_tr(
+    launches["tr"], tr_bitmap_inputs, tr_xor_shape, tr_ckpt = main_path_tr(
         args, torch, dev, K)
     free("tr")
     launches["sv"], sv_bitmap_inputs = main_path_sv(args, torch, dev, K)
     free("sv")
+    launches["sd"] = main_path_sd(args, torch, dev, K, tr_ckpt)
+    del tr_ckpt
+    free("sd")
     bitmap_inputs = ([(f"k1 wave {i}", r, p)
                       for i, (r, p) in enumerate(bitmap_inputs)]
                      + [(f"ops wave {i}", r, p)

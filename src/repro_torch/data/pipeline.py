@@ -19,6 +19,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..models.config import ModelConfig
+from ..sharding.rules import abstract_leaf
 
 _M32 = 0xFFFFFFFF
 
@@ -68,4 +69,20 @@ def synthetic_batch(cfg: ModelConfig, step: int, batch: int, seq: int,
         out["frames"] = _unit(fr)
     if as_numpy:
         out = {k: v.cpu().numpy() for k, v in out.items()}
+    return out
+
+
+def batch_spec(cfg: ModelConfig, batch: int, seq: int, env=None):
+    """One batch as ``meta`` tensors (with ``env``, ``DTensor``s of ``meta``
+    shards): the dry run's inputs."""
+    out = {"tokens": abstract_leaf((batch, seq), ("batch", None),
+                                   torch.int32, env)}
+    if cfg.family == "vlm":
+        out["prefix_embeds"] = abstract_leaf(
+            (batch, cfg.n_prefix_embeds, cfg.d_model),
+            ("batch", None, None), torch.float32, env)
+    if cfg.family == "encdec":
+        out["frames"] = abstract_leaf((batch, seq, cfg.d_model),
+                                      ("batch", None, None), torch.float32,
+                                      env)
     return out

@@ -1,14 +1,76 @@
-"""Device-aware KVS shard placement for the store backend.
+"""Device meshes for the model stack, and device-aware KVS shard placement
+for the store backend.
 
-The model stack's meshes (``make_production_mesh``/``make_debug_mesh`` in
-the JAX package) come with the sharding slice of this package; what the
-store needs is here: which device each shard's slot table lives on.
+Defined as functions (never module-level constants) so importing this module
+never touches process-group state.  A mesh is a
+:class:`~torch.distributed.device_mesh.DeviceMesh` over the ranks of the
+default process group, with the reference's axis names.
+
+H100 node shapes stand in for the reference's TPU pods, at the reference's
+chip counts: one "pod" is 256 GPUs as (32, 8) over ``("data", "model")``, two
+are 512 as (2, 32, 8) over ``("pod", "data", "model")``.  The model axis is
+one 8-GPU NVLink node: tensor parallelism exchanges activations every layer
+and needs NVLink's bandwidth, while data parallelism and FSDP gathers cross
+the slower InfiniBand between nodes.  The pod axis folds into data-parallel/
+FSDP sharding via the default rules.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
 from ..device import DeviceLike, resolve_device
+
+NODE_GPUS = 8
+# (shape, axis names) of the production meshes, by ``multi_pod``
+PRODUCTION_MESHES = {
+    False: ((32, NODE_GPUS), ("data", "model")),
+    True: ((2, 32, NODE_GPUS), ("pod", "data", "model")),
+}
+
+
+def _make_mesh(shape, axes, device_type: str = "cuda") -> DeviceMesh:
+    """A mesh of ``shape`` over the default process group, which must hold
+    exactly ``prod(shape)`` ranks."""
+    if dist.get_world_size() != math.prod(shape):
+        raise ValueError(f"a {tuple(shape)} mesh needs a world of "
+                         f"{math.prod(shape)} ranks, not "
+                         f"{dist.get_world_size()}")
+    return init_device_mesh(device_type, tuple(shape),
+                            mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda") -> DeviceMesh:
+    """256 GPUs as (32 nodes, 8 GPUs) over ``("data", "model")``, or 512 as
+    (2, 32, 8) over ``("pod", "data", "model")`` with ``multi_pod``.  The
+    default process group must already hold that many ranks: one process
+    per GPU, or a fake group (``launch/dryrun.py``, ``device_type="cpu"``)."""
+    shape, axes = PRODUCTION_MESHES[multi_pod]
+    return _make_mesh(shape, axes, device_type)
+
+
+def make_debug_mesh(n_data: int = 1, n_model: int = 1,
+                    device: DeviceLike = None) -> DeviceMesh:
+    """Small mesh for local runs: ``(n_data, n_model)`` over ``("data",
+    "model")`` on ``device``'s type (``None`` = the card).
+
+    The (1, 1) mesh in a process with no process group starts a world of
+    one (NCCL on the card, gloo on the CPU) over an in-process store, so it
+    needs no port and no network.  Any other shape needs a process group of
+    ``n_data * n_model`` ranks, started by the caller (one process per rank,
+    e.g. ``torch.multiprocessing`` with a ``file://`` rendezvous)."""
+    dev = resolve_device(device)
+    if not dist.is_initialized() and n_data * n_model == 1:
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev.index or 0)
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                store=dist.HashStore(), rank=0, world_size=1)
+    return _make_mesh((n_data, n_model), ("data", "model"), dev.type)
 
 
 def make_sharded_backend(n_shards: int = 4,

@@ -9,20 +9,29 @@ block is a function of the param tree and the activations.
 Blocks: RMSNorm (with the reference's hand-written backward), RoPE, GQA
 attention (dense, blockwise online-softmax, and the prefill/decode cache
 modes, self and cross), the SwiGLU/GELU MLP, top-k MoE with capacity-bounded
-scatter dispatch, and the Mamba2 SSD mixer as a chunked scan.  The sharded
-halves of the reference (``tree_pspecs``, ``moe_shard_map``) need a device
-mesh and come with the sharding slice (ROADMAP item 3).
+scatter dispatch (and ``moe_shard_map``, its expert-parallel form on a
+device mesh), and the Mamba2 SSD mixer as a chunked scan.
+
+Under a mesh env (``sharding.rules.mesh_env``) the same functions run on
+``DTensor`` params and activations: ``constrain`` places activations where
+the reference constrains them, and the MoE routing steps that DTensor has
+no sharding strategy for run on replicas (``sharding.rules.replicated``).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
 from .. import tree as T
+from ..sharding.rules import (abstract_leaf, constrain, current_env,
+                              replicated)
 from .config import ModelConfig
 
 NEG = -1e30     # the reference's mask value (softmax logits, padded vocab)
@@ -36,10 +45,11 @@ class ParamDef:
     init: str = "normal"        # normal | ones | zeros | small_normal
     scale: float = 0.02
 
-    def abstract(self, dtype: torch.dtype) -> torch.Tensor:
+    def abstract(self, dtype: torch.dtype, env=None) -> torch.Tensor:
         """The leaf's shape and dtype as a tensor on the ``meta`` device
-        (no storage)."""
-        return torch.empty(self.shape, dtype=dtype, device="meta")
+        (no storage); with ``env``, a ``DTensor`` of ``meta`` shards placed
+        by its rules."""
+        return abstract_leaf(self.shape, self.axes, dtype, env)
 
     def initialize(self, generator: torch.Generator, dtype: torch.dtype,
                    device: torch.device) -> torch.Tensor:
@@ -56,9 +66,10 @@ def is_def(x) -> bool:
     return isinstance(x, ParamDef)
 
 
-def tree_abstract(defs, dtype: torch.dtype):
-    """``meta`` tensors for a def tree (shapes and dtypes, no storage)."""
-    return T.tree_map(lambda d: d.abstract(dtype), defs, is_leaf=is_def)
+def tree_abstract(defs, dtype: torch.dtype, env=None):
+    """``meta`` tensors for a def tree (shapes and dtypes, no storage), or
+    with ``env`` ``DTensor``s of ``meta`` shards."""
+    return T.tree_map(lambda d: d.abstract(dtype, env), defs, is_leaf=is_def)
 
 
 def tree_init(defs, generator: torch.Generator, dtype: torch.dtype,
@@ -66,6 +77,12 @@ def tree_init(defs, generator: torch.Generator, dtype: torch.dtype,
     """Concrete tensors for a def tree, drawn from ``generator`` leaf by
     leaf in flattening order."""
     return T.tree_map(lambda d: d.initialize(generator, dtype, device), defs,
+                      is_leaf=is_def)
+
+
+def tree_pspecs(defs, env):
+    """The def tree's DTensor placements under ``env`` (one tuple a leaf)."""
+    return T.tree_map(lambda d: env.sharding_for(d.shape, d.axes), defs,
                       is_leaf=is_def)
 
 
@@ -210,6 +227,83 @@ def _blockwise_attention(q, k, v, *, causal: bool, q_block: int,
     return torch.cat(out, dim=1)
 
 
+def _on_shards(fn, q, k, v, **kw):
+    """``fn(q, k, v, **kw)``: the attention core over q (B,Sq,Hkv,G,dh) and
+    k/v (B,Skv,Hkv,dh).  On ``DTensor``s each rank attends over its own
+    batch and kv-head shards, the only ones kept (attention is local to
+    both): DTensor's products flatten the batch and head dims together,
+    which torch 2.11's DTensor refuses where both are sharded."""
+    if not isinstance(q, DTensor):
+        return fn(q, k, v, **kw)
+    mesh = q.device_mesh
+    pl = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+          for p in q.placements]
+    out = fn(*(t.redistribute(mesh, pl).to_local() for t in (q, k, v)),
+             **kw)
+    return DTensor.from_local(out, mesh, pl, run_check=False)
+
+
+def _batch_shards_only(q: torch.Tensor) -> torch.Tensor:
+    """A decode step's q with its heads gathered (one token: small), so
+    that DTensor's products over a cache sharded by sequence flatten no
+    sharded head dim (see ``_on_shards``)."""
+    if not isinstance(q, DTensor):
+        return q
+    return q.redistribute(q.device_mesh, [
+        p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+        for p in q.placements])
+
+
+def local_rows(fn, a: torch.Tensor, w: torch.Tensor, rows: int = 2
+               ) -> torch.Tensor:
+    """``fn(a, w)`` for a ``DTensor`` ``a`` whose leading ``rows`` dims
+    (batch, and sequence where ``rows`` is 2) index independent rows: each
+    rank applies ``fn`` to its own rows of ``a`` (any other shard gathered)
+    and the whole of ``w``, gathered as FSDP gathers it.  ``w``'s gradient
+    is partial over the mesh dims that shard ``a``, and DTensor
+    reduce-scatters it back to ``w``'s shards.
+
+    For what DTensor cannot place: a projection into or out of heads the
+    rules do not divide (``_proj``), the embedding gather, whose backward
+    torch 2.11's DTensor cannot place on a sharded vocabulary (an
+    ``index_put``) and 2.13's cannot either (a masked partial it will not
+    reduce into), and the depthwise conv."""
+    mesh = a.device_mesh
+    pl = [q if isinstance(q, Shard) and q.dim < rows else Replicate()
+          for q in a.placements]
+    a = a.redistribute(mesh, pl)
+    w_local = w.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=[Partial() if isinstance(q, Shard) else Replicate()
+                         for q in pl])
+    return DTensor.from_local(fn(a.to_local(), w_local), mesh, pl,
+                              run_check=False)
+
+
+def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """The rows of ``table`` that ``tokens`` name (``local_rows`` on
+    ``DTensor``s)."""
+    if isinstance(tokens, DTensor):
+        return local_rows(lambda t, w: w[t], tokens, table)
+    return table[tokens]
+
+
+def _proj(eq: str, a: torch.Tensor, w: torch.Tensor, axis: str
+          ) -> torch.Tensor:
+    """``torch.einsum(eq, a, w)`` for a projection into heads
+    (``"bsd,dhk->bshk"``) or out of them (``"bshk,hkd->bsd"``).  On
+    ``DTensor``s whose ``axis`` heads the rules do not divide (smollm's 15
+    heads over 8), DTensor's products may still shard the flattened
+    heads × head_dim over the model axis, which it then cannot split back
+    into heads: there the product runs on ``local_rows``."""
+    env = current_env()
+    if env is None or not isinstance(a, DTensor):
+        return torch.einsum(eq, a, w)
+    heads = w.shape[1] if eq.startswith("bsd,") else w.shape[0]
+    if env.spec_for((heads,), (axis,))[0] is not None:
+        return torch.einsum(eq, a, w)
+    return local_rows(functools.partial(torch.einsum, eq), a, w)
+
+
 def attention(p, x: torch.Tensor, cfg: ModelConfig, *, causal: bool = True,
               mode: str = "train", cache: Optional[dict] = None, pos=None,
               kv_x: Optional[torch.Tensor] = None, is_cross: bool = False,
@@ -220,15 +314,15 @@ def attention(p, x: torch.Tensor, cfg: ModelConfig, *, causal: bool = True,
     cache ``{"k", "v"}`` (B, S, Hkv, dh).  "decode": one step (S == 1)
     against ``cache`` at position ``pos`` (a Python int or a 0-d tensor);
     the step's K/V are written into ``cache`` in place (the counterpart of
-    the reference's donated cache) and attention covers positions
-    ``<= pos``.  ``kv_x``/``is_cross`` switch to cross-attention (keys and
+    the reference's donated cache; a ``DTensor`` cache is returned anew)
+    and attention covers positions ``<= pos``.  ``kv_x``/``is_cross`` switch to cross-attention (keys and
     values from encoder states; in decode the cache holds the precomputed
     cross K/V, never updated).
     """
     B, S, D = x.shape
     Hq, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     h = rmsnorm(x, p["norm"], cfg.norm_eps)
-    q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
+    q = _proj("bsd,dhk->bshk", h, p["wq"], "heads")
     if "bq" in p:
         q = q + p["bq"]
     cross = is_cross or kv_x is not None
@@ -237,8 +331,8 @@ def attention(p, x: torch.Tensor, cfg: ModelConfig, *, causal: bool = True,
         new_cache = cache
     else:
         src = kv_x if cross else h
-        k = torch.einsum("bsd,dhk->bshk", src, p["wk"])
-        v = torch.einsum("bsd,dhk->bshk", src, p["wv"])
+        k = _proj("bsd,dhk->bshk", src, p["wk"], "kv_heads")
+        v = _proj("bsd,dhk->bshk", src, p["wv"], "kv_heads")
         if "bk" in p:
             k, v = k + p["bk"], v + p["bv"]
         new_cache = None
@@ -255,32 +349,51 @@ def attention(p, x: torch.Tensor, cfg: ModelConfig, *, causal: bool = True,
 
     qg = _split_heads_q(q, Hkv)
     sm = _sm_dtype(cfg)
+    reshard_batch = (cfg.attn_batch_shard and mode in ("train", "prefill")
+                     and not cross)
+    if reshard_batch:
+        qg = constrain(qg, "attn_batch", None, None, None, None)
+        k = constrain(k, "attn_batch", None, None, None)
+        v = constrain(v, "attn_batch", None, None, None)
     if mode == "decode" and not cross:
         # write into the cache, attend over the valid prefix
         k_cache, v_cache = cache["k"], cache["v"]
-        k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
-        v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
-        new_cache = {"k": k_cache, "v": v_cache}
         Skv = k_cache.shape[1]
+        if isinstance(k_cache, DTensor):
+            # a cache sharded over its sequence has no view of one position
+            # to write through: the step's row is selected by a mask
+            at = (torch.arange(Skv, device=x.device) == pos)[None, :, None,
+                                                              None]
+            k_cache = torch.where(at, k.to(k_cache.dtype), k_cache)
+            v_cache = torch.where(at, v.to(v_cache.dtype), v_cache)
+        else:
+            k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
+            v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
+        new_cache = {"k": k_cache, "v": v_cache}
         valid = (torch.arange(Skv, device=x.device) <= pos)[None, :] \
             .expand(B, Skv)
-        out = _dense_attention(qg, k_cache, v_cache, causal=False,
-                               kv_len_mask=valid, softmax_dtype=sm)
+        out = _dense_attention(_batch_shards_only(qg), k_cache, v_cache,
+                               causal=False, kv_len_mask=valid,
+                               softmax_dtype=sm)
     elif mode == "decode" and cross:
-        out = _dense_attention(qg, k, v, causal=False, softmax_dtype=sm)
+        out = _dense_attention(_batch_shards_only(qg), k, v, causal=False,
+                               softmax_dtype=sm)
     elif cfg.attn_impl == "blockwise" and mode in ("train", "prefill") \
             and not cross:
-        out = _blockwise_attention(qg, k, v, causal=causal,
-                                   q_block=cfg.attn_block_q,
-                                   kv_block=cfg.attn_block_kv)
+        out = _on_shards(_blockwise_attention, qg, k, v, causal=causal,
+                         q_block=cfg.attn_block_q,
+                         kv_block=cfg.attn_block_kv)
     else:
-        out = _dense_attention(qg, k, v, causal=causal and not cross,
-                               softmax_dtype=sm)
+        out = _on_shards(_dense_attention, qg, k, v,
+                         causal=causal and not cross, softmax_dtype=sm)
 
     if mode == "prefill":
         new_cache = {"k": k, "v": v}   # cross prefill caches encoder K/V too
+    if reshard_batch:
+        out = constrain(out, "attn_batch", None, None, None, None)
     out = out.reshape(B, S, Hq, dh)
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    out = constrain(out, "batch", None, "act_heads", None)
+    y = _proj("bshk,hkd->bsd", out, p["wo"], "heads")
     return x + y, new_cache
 
 
@@ -318,6 +431,28 @@ def moe_defs(cfg: ModelConfig, L: int) -> Dict[str, ParamDef]:
     }
 
 
+def _expert_positions(flat_e: torch.Tensor, E: int) -> torch.Tensor:
+    """Each choice's position within its expert: its rank among the choices
+    of that expert in a stable sort of the expert ids (O(Tk log Tk), not
+    the (T, E) one-hot cumsum)."""
+    dev = flat_e.device
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    first = torch.searchsorted(sorted_e, torch.arange(E, device=dev),
+                               right=False)
+    pos_sorted = torch.arange(flat_e.numel(), device=dev) - first[sorted_e]
+    return torch.zeros_like(pos_sorted).index_put_((order,), pos_sorted)
+
+
+def _token_fractions(flat_e: torch.Tensor, E: int) -> torch.Tensor:
+    """The share of the choices that went to each expert (f32)."""
+    n = flat_e.numel()
+    return torch.zeros(E, dtype=torch.float32, device=flat_e.device) \
+        .index_put_((flat_e,), torch.full((n,), 1.0 / n,
+                                          device=flat_e.device),
+                    accumulate=True)
+
+
 def moe(p, x: torch.Tensor, cfg: ModelConfig
         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k MoE with capacity-bounded scatter dispatch.  Returns
@@ -328,12 +463,13 @@ def moe(p, x: torch.Tensor, cfg: ModelConfig
     (its row lands in the overflow slot ``cap``, zeroed, and its gate is
     masked).  Dispatch and combine are an ``index_put_`` and a gather, the
     scatter-adds ``index_put_(accumulate=True)``, which is deterministic on
-    the card under ``torch.use_deterministic_algorithms``.
+    the card under ``torch.use_deterministic_algorithms``.  On ``DTensor``s
+    the routing, dispatch and combine run on replicas and the expert
+    matmuls on the reference's ``("experts", "capacity")`` placement.
     """
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.moe_top_k
     T_ = B * S
-    dev = x.device
     h = rmsnorm(x, p["norm"], cfg.norm_eps).reshape(T_, D)
 
     logits = torch.einsum("td,de->te", h, p["router"]).to(torch.float32)
@@ -344,39 +480,169 @@ def moe(p, x: torch.Tensor, cfg: ModelConfig
     # ---- position within expert via sort --------------------------------
     cap = max(int(math.ceil(T_ * K / E * cfg.capacity_factor)), K)
     flat_e = eid.reshape(-1)                                     # (T*K,)
-    order = torch.argsort(flat_e, stable=True)
-    sorted_e = flat_e[order]
-    first = torch.searchsorted(sorted_e, torch.arange(E, device=dev),
-                               right=False)
-    pos_sorted = torch.arange(T_ * K, device=dev) - first[sorted_e]
-    pos = torch.zeros_like(pos_sorted).index_put_((order,), pos_sorted) \
-        .reshape(T_, K)
+    pos = replicated(_expert_positions, flat_e, E).reshape(T_, K)
     keep = pos < cap                                             # capacity drop
     pos_c = torch.where(keep, pos, cap)                          # overflow slot
 
     # ---- dispatch: (E, cap+1, D) scatter ---------------------------------
+    def scatter(xk, e, slot):
+        buf = torch.zeros((E, cap + 1, D), dtype=xk.dtype, device=xk.device)
+        return buf.index_put_((e, slot), xk, accumulate=True)[:, :cap]
     xk = h[:, None, :].expand(T_, K, D) * keep[..., None].to(x.dtype)
-    buf = torch.zeros((E, cap + 1, D), dtype=x.dtype, device=dev)
-    buf = buf.index_put_((flat_e, pos_c.reshape(-1)), xk.reshape(T_ * K, D),
-                         accumulate=True)[:, :cap]
+    buf = replicated(scatter, xk.reshape(T_ * K, D), flat_e,
+                     pos_c.reshape(-1))
+    buf = constrain(buf, "experts", "capacity", None)
 
     # ---- expert computation ---------------------------------------------
     up = torch.einsum("ecd,edf->ecf", buf, p["wu"])
     up = F.silu(torch.einsum("ecd,edf->ecf", buf, p["wg"])) * up
     out_buf = torch.einsum("ecf,efd->ecd", up, p["wd"])
+    out_buf = constrain(out_buf, "experts", "capacity", None)
 
     # ---- combine: gather back --------------------------------------------
-    got = out_buf[flat_e, torch.clamp(pos_c, max=cap - 1).reshape(-1)]
+    got = replicated(lambda ob, e, slot: ob[e, slot], out_buf, flat_e,
+                     torch.clamp(pos_c, max=cap - 1).reshape(-1))
     got = got.reshape(T_, K, D) * (gate * keep).to(x.dtype)[..., None]
     y = got.sum(dim=1).reshape(B, S, D)
 
     # ---- load-balance aux loss (Switch-style) -----------------------------
-    frac_tokens = torch.zeros(E, dtype=torch.float32, device=dev).index_put_(
-        (flat_e,), torch.full((T_ * K,), 1.0 / (T_ * K), device=dev),
-        accumulate=True)
+    frac_tokens = replicated(_token_fractions, flat_e, E)
     mean_prob = probs.mean(dim=0)
     aux = cfg.router_aux_coef * E * torch.sum(frac_tokens * mean_prob)
     return x + y, aux
+
+
+def moe_shard_map(p, x: torch.Tensor, cfg: ModelConfig
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE with *zero token exchange*, per rank on local
+    shards (the reference's ``shard_map`` body).
+
+    Activations are batch-sharded over the data axes and replicated over the
+    model axis, while experts are sharded over the model axis, so every
+    (data, model) rank already holds all of its data shard's tokens AND its
+    expert subset.  Dispatch and combine are purely local; the only
+    communication is (a) the FSDP all-gather of the expert weights' embed
+    shards over the data group(s) (the functional collectives' autograd
+    gather, whose backward is the reduce-scatter of ZeRO-3;
+    ``torch.distributed.nn.functional.all_gather`` would do on NCCL, but its
+    gloo backward scatters from group ranks taken as global ranks and fails
+    on a subgroup) and (b) the sum of the combined output over the model
+    group.
+
+    The sum is left to DTensor: each rank's output is a ``Partial`` share
+    over the model axis, reduced where the residual add needs it, and its
+    gradient reaches every share whole.  Inputs replicated over an axis
+    (the norm scale, the router and the tokens over the model axis; the
+    norm scale over the data axes) declare ``Partial`` gradients there, so
+    DTensor sums each rank's share: the transpose of ``shard_map``'s
+    implicit broadcast.  ``aux`` is each rank's value over the number of
+    ranks, ``Partial`` everywhere: its sum is the mean over the data shards.
+
+    Capacity semantics: per (data-shard, expert), the per-device capacity
+    real EP systems use, vs ``moe``'s global per-expert capacity.  Without
+    an env, without a model axis, with indivisible experts or batch, or for
+    one token (decode), this is ``moe``.  Takes ``DTensor``s or plain
+    tensors (global values, the same on every rank); plain tensors in,
+    plain tensors out.
+    """
+    from torch.distributed._functional_collectives import \
+        all_gather_tensor_autograd as gather
+
+    env = current_env()
+    if env is None:
+        return moe(p, x, cfg)          # no mesh (unit tests): gspmd path
+    mesh = env.mesh
+    names = mesh.mesh_dim_names
+    dp = tuple(a for a in ("pod", "data") if a in names)
+    E, K = cfg.n_experts, cfg.moe_top_k
+    if "model" not in names:
+        return moe(p, x, cfg)
+    tp_size = env.axis_size("model")
+    dp_size = math.prod(env.axis_size(a) for a in dp)
+    if E % tp_size or x.shape[0] % dp_size or x.shape[1] == 1:
+        # indivisible experts/batch (e.g. batch-1 long-context decode), or
+        # single-token decode (dispatch is trivial; the local-dispatch
+        # machinery measurably regresses it): gspmd fallback
+        return moe(p, x, cfg)
+    E_l = E // tp_size
+    dp_spec = dp if len(dp) > 1 else (dp[0] if dp else None)
+    rep = [Replicate()] * mesh.ndim
+
+    def dtensor(t):
+        return t if isinstance(t, DTensor) else \
+            DTensor.from_local(t, mesh, rep, run_check=False)
+
+    def local(t, spec, partial_over=()):
+        pl = env.placements(spec)
+        grad = tuple(Partial() if names[i] in partial_over
+                     and isinstance(q, Replicate) else q
+                     for i, q in enumerate(pl))
+        return dtensor(t).redistribute(mesh, pl).to_local(
+            grad_placements=grad)
+
+    norm = local(p["norm"], (None,), names)
+    router = local(p["router"], (dp_spec, None), ("model",))
+    wg = local(p["wg"], ("model", dp_spec, None))
+    wu = local(p["wu"], ("model", dp_spec, None))
+    wd = local(p["wd"], ("model", None, dp_spec))
+    x_l = local(x, (dp_spec, None, None), ("model",))
+    # gather FSDP weight shards, innermost axis first: a dim sharded over
+    # (pod, data) is laid out pod-major
+    for ax in reversed(dp):
+        g = mesh.get_group(ax)
+        router = gather(router, 0, g)
+        wg, wu, wd = gather(wg, 1, g), gather(wu, 1, g), gather(wd, 2, g)
+
+    B_l, S, D = x_l.shape
+    T_ = B_l * S
+    dev = x_l.device
+    h = rmsnorm(x_l, norm, cfg.norm_eps).reshape(T_, D)
+    logits = torch.einsum("td,de->te", h, router).to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    gate, eid = torch.topk(probs, K, dim=-1, sorted=True)
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+
+    cap = max(K, int(math.ceil(T_ * K / E * cfg.capacity_factor)))
+    flat_e = eid.reshape(-1)
+    pos = _expert_positions(flat_e, E).reshape(T_, K)
+    keep = pos < cap
+
+    local_e = eid - mesh.get_local_rank("model") * E_l
+    mine = (local_e >= 0) & (local_e < E_l) & keep
+    e_c = torch.where(mine, local_e, 0)
+    pos_c = torch.where(mine, pos, cap)
+
+    # gather-based dispatch: scatter only the int32 slot->token map, then
+    # gather token rows (no (T, K, D) broadcast); the overflow slot ``cap``
+    # of expert 0 takes every choice that is not this rank's and is cut off
+    slot = (e_c * (cap + 1) + pos_c).reshape(-1)                 # (T*K,)
+    tok_of = torch.full((E_l * (cap + 1),), -1, dtype=torch.int32,
+                        device=dev).index_put_(
+        (slot,), torch.arange(T_ * K, dtype=torch.int32, device=dev) // K)
+    filled = (tok_of >= 0)[:, None].to(x_l.dtype)
+    buf = (h[torch.clamp(tok_of, min=0).long()] * filled) \
+        .reshape(E_l, cap + 1, D)[:, :cap]
+
+    up = torch.einsum("ecd,edf->ecf", buf, wu)
+    up = F.silu(torch.einsum("ecd,edf->ecf", buf, wg)) * up
+    out_buf = torch.einsum("ecf,efd->ecd", up, wd)
+
+    got = out_buf[e_c.reshape(-1), torch.clamp(pos_c, max=cap - 1).reshape(-1)]
+    got = got.reshape(T_, K, D) * (gate * mine).to(x_l.dtype)[..., None]
+    y_share = got.sum(dim=1).reshape(B_l, S, D)
+    aux = cfg.router_aux_coef * E * torch.sum(
+        _token_fractions(flat_e, E) * probs.mean(dim=0))
+
+    y_pl = tuple(Partial() if n == "model" else q for n, q in
+                 zip(names, env.placements((dp_spec, None, None))))
+    y = DTensor.from_local(y_share, mesh, y_pl, run_check=False,
+                           shape=x.shape, stride=x.stride())
+    aux = DTensor.from_local(aux / (dp_size * tp_size), mesh,
+                             [Partial()] * mesh.ndim, run_check=False)
+    out = dtensor(x) + y
+    if isinstance(x, DTensor):
+        return out, aux
+    return out.full_tensor(), aux.full_tensor()
 
 
 # ------------------------------------------------------------------ SSD/SSM
@@ -407,7 +673,12 @@ def ssm_defs(cfg: ModelConfig, L: int) -> Dict[str, ParamDef]:
 
 def _causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: (B, S, C); w: (W, C) depthwise causal conv (a cross-correlation
-    over the left-padded input, as the reference's ``conv_general_dilated``)."""
+    over the left-padded input, as the reference's ``conv_general_dilated``).
+    On ``DTensor``s each rank convolves its own batch rows (``local_rows``):
+    DTensor's convolution places neither sharded channels nor a batch
+    sharded over two mesh dims."""
+    if isinstance(x, DTensor):
+        return local_rows(_causal_depthwise_conv, x, w, rows=1)
     W, C = w.shape
     xp = F.pad(x.transpose(1, 2), (W - 1, 0))                   # (B, C, S+W-1)
     return F.conv1d(xp, w.t()[:, None, :], groups=C).transpose(1, 2)
@@ -460,6 +731,38 @@ def _ssd_chunk_scan(x, dt, A, Bm, Cm, chunk: int, init_state=None):
     return torch.cat(ys, dim=1), state
 
 
+def _ssd_on_shards(x, dt, A, Bm, Cm, chunk: int):
+    """``_ssd_chunk_scan``; on ``DTensor``s each rank scans its own batch
+    and head shards (the scan is local to both), with ``Bm``/``Cm`` (shared
+    by the heads) and ``A`` (shared by the batch) whole where they are
+    shared: torch 2.11's DTensor cannot flatten the scan's batch × heads.
+    A tensor that is whole on a mesh dim that shards ``x`` gets a gradient
+    partial over it, each rank's share."""
+    if not isinstance(x, DTensor):
+        return _ssd_chunk_scan(x, dt, A, Bm, Cm, chunk)
+    mesh = x.device_mesh
+    kinds = [q.dim if isinstance(q, Shard) and q.dim in (0, 2) else None
+             for q in x.placements]            # 0: batch, 2: heads
+
+    def placements(b_dim, h_dim):
+        return [Shard(b_dim) if k == 0 and b_dim is not None else
+                Shard(h_dim) if k == 2 and h_dim is not None else
+                Replicate() for k in kinds]
+
+    def local(t, b_dim, h_dim):
+        pl = placements(b_dim, h_dim)
+        grad = [Partial() if k is not None and isinstance(q, Replicate)
+                else q for k, q in zip(kinds, pl)]
+        return t.redistribute(mesh, pl).to_local(grad_placements=grad)
+
+    y, state = _ssd_chunk_scan(local(x, 0, 2), local(dt, 0, 2),
+                               local(A, None, 0), local(Bm, 0, None),
+                               local(Cm, 0, None), chunk)
+    return (DTensor.from_local(y, mesh, placements(0, 2), run_check=False),
+            DTensor.from_local(state, mesh, placements(0, 1),
+                               run_check=False))
+
+
 def ssm_block(p, x: torch.Tensor, cfg: ModelConfig, *, mode: str = "train",
               cache: Optional[dict] = None):
     """Mamba2 (SSD) mixer.  Returns (residual_out, new_cache).
@@ -507,7 +810,7 @@ def ssm_block(p, x: torch.Tensor, cfg: ModelConfig, *, mode: str = "train",
         Bm = F.silu(_causal_depthwise_conv(Bm, p["conv_B"]))
         Cm = F.silu(_causal_depthwise_conv(Cm, p["conv_C"]))
         xh = xs.reshape(B, S, H, P)
-        y, final_state = _ssd_chunk_scan(xh, dt, A, Bm, Cm, cfg.ssm_chunk)
+        y, final_state = _ssd_on_shards(xh, dt, A, Bm, Cm, cfg.ssm_chunk)
         y = y + p["Dskip"].to(x.dtype)[None, None, :, None] * xh
         y = y.reshape(B, S, d_in)
         new_cache = None

@@ -5,8 +5,9 @@ Layers are stacked per *position-in-period* (the reference package's
 ``models/model.py`` layout, so the param trees are the same) and the stacked
 groups run in a Python loop where the reference scans them.  Heterogeneous
 patterns (Jamba's attn/ssm 1:7 interleave with alternating dense/MoE FFN)
-unroll the period inside each group.  One card, no mesh: the reference's
-sharding constraints have nothing to do here.
+unroll the period inside each group.  Under a mesh env the params, batch
+and caches may be ``DTensor``s, and ``constrain`` places the activations
+where the reference constrains them; without one it does nothing.
 
 Caches mirror the param structure: per position, stacked over groups.
 Prefill builds them; decode writes each step's K/V into them in place (the
@@ -21,13 +22,15 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint as ckpt
+from torch.distributed.tensor import DTensor
 
 from .. import tree as T
 from ..device import DeviceLike, resolve_device
+from ..sharding.rules import abstract_leaf, constrain, replicated
 from .config import ModelConfig
-from .layers import (NEG, ParamDef, attention, attn_defs, mlp, mlp_defs, moe,
-                     moe_defs, rmsnorm, ssm_block, ssm_defs, tree_abstract,
-                     tree_init)
+from .layers import (NEG, ParamDef, attention, attn_defs, embed, mlp,
+                     mlp_defs, moe, moe_defs, moe_shard_map, rmsnorm,
+                     ssm_block, ssm_defs, tree_abstract, tree_init)
 
 Params = Dict[str, Any]
 
@@ -68,9 +71,10 @@ def param_defs(cfg: ModelConfig) -> Params:
     return defs
 
 
-def abstract_params(cfg: ModelConfig):
-    """The param tree as ``meta`` tensors (shapes and dtypes, no storage)."""
-    return tree_abstract(param_defs(cfg), cfg.torch_dtype)
+def abstract_params(cfg: ModelConfig, env=None):
+    """The param tree as ``meta`` tensors (shapes and dtypes, no storage),
+    or with ``env`` as ``DTensor``s of ``meta`` shards."""
+    return tree_abstract(param_defs(cfg), cfg.torch_dtype, env)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -109,21 +113,23 @@ def cache_defs(cfg: ModelConfig, batch: int, cache_len: int
     return out
 
 
-def abstract_cache(cfg: ModelConfig, batch: int, cache_len: int):
-    """The decode caches as ``meta`` tensors.  The SSM recurrent state is
-    f32; K/V and conv caches are in the model dtype.  Keyed by name, never
-    by shape (head_dim can coincide with ssm_state, both 128 in jamba)."""
+def abstract_cache(cfg: ModelConfig, batch: int, cache_len: int, env=None):
+    """The decode caches as ``meta`` tensors (with ``env``, ``DTensor``s of
+    ``meta`` shards).  The SSM recurrent state is f32; K/V and conv caches
+    are in the model dtype.  Keyed by name, never by shape (head_dim can
+    coincide with ssm_state, both 128 in jamba)."""
     tree = []
     for c in cache_defs(cfg, batch, cache_len):
         tree.append({mix: {name: d.abstract(torch.float32 if name == "state"
-                                            else cfg.torch_dtype)
+                                            else cfg.torch_dtype, env)
                            for name, d in sub.items()}
                      for mix, sub in c.items()})
     if cfg.family == "encdec":
         shape = (cfg.n_groups_scan, batch, cross_len(cfg, cache_len),
                  cfg.n_kv_heads, cfg.head_dim)
+        axes = ("layers", "batch", None, None, None)
         tree.append({"cross": {
-            n: torch.empty(shape, dtype=cfg.torch_dtype, device="meta")
+            n: abstract_leaf(shape, axes, cfg.torch_dtype, env)
             for n in ("k", "v")}})
     return tree
 
@@ -196,12 +202,13 @@ def _apply_block(cfg: ModelConfig, bp, x, mode: str, cache, pos, aux):
     if "mlp" in bp:
         x = mlp(bp["mlp"], x, cfg)
     elif "moe" in bp:
-        if cfg.moe_impl == "shard_map":
-            raise NotImplementedError(
-                "moe_impl='shard_map' needs a device mesh: it comes with the "
-                "sharding slice (ROADMAP item 3)")
-        x, a = moe(bp["moe"], x, cfg)
+        moe_fn = moe_shard_map if cfg.moe_impl == "shard_map" else moe
+        x, a = moe_fn(bp["moe"], x, cfg)
         aux = aux + a
+    if cfg.seq_parallel and mode in ("train", "prefill") and x.shape[1] > 1:
+        x = constrain(x, "batch", "seq_sp", None)
+    else:
+        x = constrain(x, "batch", None, None)
     return x, new_cache, aux
 
 
@@ -265,7 +272,8 @@ def forward_blocks(cfg: ModelConfig, blocks, x, *, mode: str, caches=None,
 def _logits(cfg: ModelConfig, params, x):
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return torch.einsum("bsd,dv->bsv", x, head)
+    return constrain(torch.einsum("bsd,dv->bsv", x, head),
+                     "batch", None, "vocab")
 
 
 def _mask_padded_vocab(cfg: ModelConfig, logits):
@@ -346,6 +354,9 @@ def _pad_attn_caches(caches, max_len: Optional[int]):
             k, v = c["attn"]["k"], c["attn"]["v"]
             tgt = max_len if max_len is not None else 2 * k.shape[2]
             pad = max(0, tgt - k.shape[2])
+            if not pad:
+                out.append(c)
+                continue
             c = dict(c)
             c["attn"] = {"k": F.pad(k, (0, 0, 0, 0, 0, pad)),
                          "v": F.pad(v, (0, 0, 0, 0, 0, pad))}
@@ -361,7 +372,7 @@ class Model:
         self.cfg = cfg
 
     def _embed(self, params, batch):
-        x = params["embed"][batch["tokens"]]
+        x = embed(batch["tokens"], params["embed"])
         if self.cfg.family == "vlm":
             x = torch.cat([batch["prefix_embeds"].to(x.dtype), x], dim=1)
         return x
@@ -369,7 +380,7 @@ class Model:
     # ---------------------------------------------------------------- train
     def train_logits(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
         cfg = self.cfg
-        x = self._embed(params, batch)
+        x = constrain(self._embed(params, batch), "batch", None, None)
         if cfg.family == "encdec":
             enc = _encode(cfg, params, batch["frames"].to(x.dtype))
             x = x + params["pos_embed"][: x.shape[1]][None]
@@ -390,7 +401,15 @@ class Model:
             logits, targets = logits[:, :-1], tokens[:, 1:]
         logits = _mask_padded_vocab(cfg, logits.to(torch.float32))
         logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+        if isinstance(logits, DTensor):
+            # DTensor's gather along a sharded vocabulary leaves a masked
+            # partial it cannot reduce after the index dim is dropped; the
+            # masked sum takes the same values from every shard
+            vocab = torch.arange(logits.shape[-1], device=logits.device)
+            gold = torch.where(vocab == targets[..., None], logits, 0.0) \
+                .sum(dim=-1)
+        else:
+            gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
         return (logz - gold).mean() + aux
 
     # -------------------------------------------------------------- prefill
@@ -427,7 +446,7 @@ class Model:
         (B, 1) at absolute position ``pos`` (a Python int or a 0-d tensor).
         Consumes ``caches``: they are updated in place and returned."""
         cfg = self.cfg
-        x = params["embed"][tokens]
+        x = constrain(embed(tokens, params["embed"]), "batch", None, None)
         if cfg.family == "encdec":
             p = int(pos)
             x = x + params["pos_embed"][p:p + 1][None]
@@ -445,7 +464,11 @@ class Model:
         ``pos`` → (next tokens (B,) int32, caches).  Consumes ``caches``
         (see :meth:`decode_logits`)."""
         logits, caches = self.decode_logits(params, caches, tokens, pos)
-        return torch.argmax(logits[:, -1], dim=-1).to(torch.int32), caches
+        # on replicas: DTensor's argmax over a sharded vocabulary mis-shapes
+        # its gather when the batch is 1
+        nxt = replicated(lambda lg: torch.argmax(lg, dim=-1).to(torch.int32),
+                         logits[:, -1])
+        return nxt, caches
 
 
 def build_model(cfg: ModelConfig) -> Model:

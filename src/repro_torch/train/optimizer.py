@@ -4,6 +4,10 @@ State trees mirror the parameter tree, as in the reference package's
 ``train/optimizer.py``; the update is the reference's step for step in f32,
 its bias corrections and decay f32 powers of the step.  Updates are
 functional: they return new tensors and leave their inputs as they were.
+
+``abstract_state`` builds the state as ``meta`` tensors (``DTensor``s of
+``meta`` shards under a mesh env) directly from ParamDefs, so the dry run
+can trace a full train step without materializing anything.
 """
 from __future__ import annotations
 
@@ -12,6 +16,8 @@ import dataclasses
 import torch
 
 from .. import tree as T
+from ..models.layers import is_def
+from ..sharding.rules import abstract_leaf
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +61,36 @@ class Optimizer:
                               if _is_factorable(p.shape) else (1,), p)
             return {"vr": T.tree_map(vr, params),
                     "vc": T.tree_map(vc, params), "step": step}
+        raise ValueError(c.name)
+
+    def abstract_state(self, param_defs, env=None):
+        """The optimizer state as ``meta`` tensors, from ParamDefs; with
+        ``env``, ``DTensor``s placed by the params' rules (the step
+        replicated)."""
+        c = self.cfg
+
+        def f32(shape, axes):
+            return abstract_leaf(shape, axes, torch.float32, env)
+
+        step = abstract_leaf((), (), torch.int32, env)
+        if c.name == "adamw":
+            def full(d):
+                return f32(d.shape, d.axes)
+            return {"mu": T.tree_map(full, param_defs, is_leaf=is_def),
+                    "nu": T.tree_map(full, param_defs, is_leaf=is_def),
+                    "step": step}
+        if c.name == "adafactor":
+            def vr(d):
+                return (f32(d.shape[:-1], d.axes[:-1])
+                        if _is_factorable(d.shape) else f32(d.shape, d.axes))
+
+            def vc(d):
+                return (f32(d.shape[:-2] + d.shape[-1:],
+                            d.axes[:-2] + d.axes[-1:])
+                        if _is_factorable(d.shape) else f32((1,), (None,)))
+            return {"vr": T.tree_map(vr, param_defs, is_leaf=is_def),
+                    "vc": T.tree_map(vc, param_defs, is_leaf=is_def),
+                    "step": step}
         raise ValueError(c.name)
 
     @torch.no_grad()

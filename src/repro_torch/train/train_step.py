@@ -12,7 +12,7 @@ import torch
 from .. import tree as T
 from ..device import DeviceLike, resolve_device
 from ..models.config import ModelConfig
-from ..models.model import Model, init_params
+from ..models.model import Model, abstract_params, init_params, param_defs
 from .optimizer import Optimizer
 
 
@@ -41,3 +41,10 @@ def init_state(cfg: ModelConfig, opt: Optimizer, generator: torch.Generator,
     ``device`` (``None`` = the card)."""
     params = init_params(cfg, generator, resolve_device(device))
     return {"params": params, "opt": opt.init(params)}
+
+
+def abstract_state(cfg: ModelConfig, opt: Optimizer, env=None):
+    """The train state as ``meta`` tensors (with ``env``, ``DTensor``s of
+    ``meta`` shards): the dry run's inputs."""
+    return {"params": abstract_params(cfg, env),
+            "opt": opt.abstract_state(param_defs(cfg), env)}

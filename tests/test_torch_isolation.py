@@ -19,7 +19,7 @@ from repro_torch.interop import state_from_reference
 from repro_torch.kernels import ops
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
-from repro_torch.launch.mesh import make_sharded_backend
+from repro_torch.launch.mesh import make_debug_mesh, make_sharded_backend
 from repro_torch.models.model import init_params, zero_cache
 from repro_torch.train.checkpoint import VersionedCheckpointer
 from repro_torch.train.optimizer import make_optimizer
@@ -44,7 +44,9 @@ def test_port_imports_no_jax_and_no_reference():
               "configs", "configs.registry", "configs.shapes",
               "configs.smollm_360m", "data.pipeline", "train.optimizer",
               "train.train_step", "train.checkpoint", "train.grad_compress",
-              "launch.train", "serve.engine", "launch.serve"):
+              "launch.train", "serve.engine", "launch.serve",
+              "sharding.rules", "train.elastic", "launch.dryrun",
+              "launch.cost"):
         assert "repro_torch." + m in mods, m
     code = (
         "import importlib, sys\n"
@@ -97,6 +99,7 @@ def _one_version_graph() -> VersionGraph:
     lambda: launch_train.run(["--reduced", "--steps", "1"]),
     lambda: launch_serve.run(["--reduced", "--batch", "1", "--gen", "2"]),
     lambda: zero_cache(ARCHS["smollm-360m"].reduced(), 1, 4),
+    lambda: make_debug_mesh(),
 ])
 def test_default_device_is_the_card(entry):
     """With no device given, an entry point asks for CUDA and raises here

@@ -229,14 +229,21 @@ def test_padded_vocab_is_masked_like_the_reference():
 
 
 def test_shard_map_moe_raises_naming_item_3():
-    """The expert-parallel MoE needs a device mesh: it raises
-    NotImplementedError naming the sharding slice, never another code
-    path."""
-    cfg = small("granite-moe-1b-a400m", moe_impl="shard_map")[1]
-    params = init_params(cfg, torch.Generator().manual_seed(0), CPU)
-    batch = synthetic_batch(cfg, 0, 2, 16, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 3"):
-        build_model(cfg).loss(params, batch)
+    """Without a device mesh the expert-parallel MoE is the plain ``moe``,
+    as the reference's ``moe_shard_map`` falls back to it: the loss with
+    ``moe_impl="shard_map"`` equals the gspmd loss bit for bit and the
+    reference's at rtol 1e-5; nothing raises ``NotImplementedError``."""
+    cfg_r, cfg_t = small("granite-moe-1b-a400m", moe_impl="shard_map")
+    gspmd = small("granite-moe-1b-a400m")[1]
+    params = r_init(cfg_r, jax.random.PRNGKey(0))
+    batch = r_batch(cfg_r, 0, 2, 16)
+    pt = state_from_reference(jax.tree.map(np.asarray, params), CPU)
+    bt = {k: to_t(v) for k, v in batch.items()}
+    got = build_model(cfg_t).loss(pt, bt)
+    assert torch.equal(got, build_model(gspmd).loss(pt, bt))
+    assert float(got) == pytest.approx(float(r_build(cfg_r).loss(params,
+                                                                 batch)),
+                                       rel=1e-5)
 
 
 def test_state_interop_round_trips_bf16():

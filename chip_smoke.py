@@ -95,24 +95,42 @@ then:
    (granite-moe x decode_32k on the 256-GPU mesh of a fake process group)
    as a subprocess.  It launches no kernel; its NCCL group is destroyed
    before the kernel phases.
-8. Kernel phases: each kernel against its plain PyTorch version on the card,
+8. ex main path, the repo's examples on the port, in-process at their
+   default flags (the reference's own sizes): ``examples/quickstart_torch.py``
+   (k=3, a 4-shard ``ShardedKVS``), ``ehr_analytics_torch.py`` (k=4, 400
+   patients) and ``serve_demo_torch.py`` (granite-moe-1b-a400m
+   ``.reduced()``, the registry's two versions served).  quickstart's and
+   ehr's output must equal the reference's transcripts
+   (``tests/data/examples/``) exactly; serve_demo's line for line outside
+   the named masks of ``masks.json`` (wall-clock seconds, the tokens of the
+   random weights).  The launch counts are zeroed and read around each
+   example.  ``versioned_training_torch.py`` is too long for this run's
+   time limit: ``scripts/ex_alone.py`` runs it; tr is its checked
+   counterpart here.
+9. Kernel phases: each kernel against its plain PyTorch version on the card,
    bit-exact, at the shapes the main paths gave it (``xor_delta`` at every
-   ragged launch of k3, ``bitmap_vm`` at every program of k1, ops, tr and
-   sv) and at the shapes named below, with device times (a CUDA graph of 200
-   launches) and host-launched CUDA-event times beside the bound.
+   ragged launch of k3 and ex, ``bitmap_vm`` at every program of k1, ops,
+   tr, sv and ex) and at the shapes named below, with device times (a CUDA
+   graph of 200 launches) and host-launched CUDA-event times beside the
+   bound.
 
 Each kernel wrapper counts its own launches; all four counts are zeroed
-just before each main path and read just after it.  Every phase raises on
-failure.  The last line is ``{"ok": true, "device": {...}}``; the line before
-it the card's name and power limit; the one before that the per-kernel JSON.
+just before each main path (each example of ex) and read just after it.
+Every phase raises on failure.  The last line is ``{"ok": true, "device":
+{...}}``; the line before it the card's name and power limit; the one before
+that the per-kernel JSON.
 Exits non-zero, printing no result, when no card is visible.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
+import importlib.util
+import io
 import json
 import os
+import re
 import resource
 import subprocess
 import sys
@@ -167,6 +185,11 @@ SV_BATCH, SV_PROMPT, SV_GEN, SV_WAVES = 8, 64, 32, 3
 SV_REG_STEPS, SV_REG_BATCH, SV_REG_SEQ = 5, 4, 64
 # The sd path's dry-run cell: one (architecture, shape) on the 256-GPU mesh.
 SD_DRY_ARCH, SD_DRY_SHAPE = "granite-moe-1b-a400m", "decode_32k"
+
+
+# The reference's output of each example (``<name>.txt``) and the named
+# masks (``masks.json``) of the fields the port may print otherwise.
+EXAMPLES_DATA = os.path.join(ROOT, "tests", "data", "examples")
 
 
 def log(*a) -> None:
@@ -2018,6 +2041,87 @@ def main_path_sd(args, torch, dev, K, tr_ckpt):
     return launches
 
 
+def load_example(file: str):
+    """``examples/<file>`` as a module, its ``main`` not yet run."""
+    spec = importlib.util.spec_from_file_location(
+        "example_" + file[:-3], os.path.join(ROOT, "examples", file))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def masked(text: str, example: str) -> List[str]:
+    """``text``'s lines, each field that ``example``'s masks name replaced
+    by ``<its name>``."""
+    with open(os.path.join(EXAMPLES_DATA, "masks.json")) as f:
+        masks = json.load(f)[example]
+    lines = text.splitlines()
+    for name, m in masks.items():
+        lines = [re.sub(m["pattern"], f"<{name}>", ln) for ln in lines]
+    return lines
+
+
+def main_path_ex(torch, K):
+    """The repo's examples on the port (``examples/*_torch.py``), each
+    called in-process at its default flags (the reference's own sizes) on
+    the card, its stdout captured: ``quickstart`` and ``ehr_analytics`` must
+    print the reference's transcript exactly, and ``serve_demo`` line for
+    line outside its named masks.  The four launch counts are zeroed just
+    before each example and read just after it.  Every ``bitmap_vm``
+    program and ``xor_delta`` ragged launch is recorded (its example and a
+    copy of its inputs) for the kernel phases.  Returns the launches per
+    example and the inputs."""
+    orig_vm, orig_ragged = K.bitmap.bitmap_vm, K.delta.xor_delta_ragged
+    vm_inputs, delta_inputs = [], []
+    current = [""]
+
+    def recording_vm(regs, prog):
+        vm_inputs.append((current[0], regs.clone(), prog.clone()))
+        return orig_vm(regs, prog)
+
+    def recording_ragged(p, c, off):
+        delta_inputs.append((current[0], p.clone(), c.clone(), off.clone()))
+        return orig_ragged(p, c, off)
+
+    # each example, whether its output must equal the transcript exactly,
+    # and the kernels its path must launch
+    plan = (("quickstart", True, ("bitmap_vm", "xor_delta")),
+            ("ehr_analytics", True, ("bitmap_vm", "xor_delta")),
+            ("serve_demo", False, ("bitmap_vm",)))
+    launches = {}
+    K.bitmap.bitmap_vm = recording_vm
+    K.delta.xor_delta_ragged = recording_ragged
+    try:
+        for example, exact, needs in plan:
+            mod = load_example(f"{example}_torch.py")
+            current[0] = f"ex {example}"
+            buf = io.StringIO()
+            zero_launches(K)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                mod.main([])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            n = launches[f"ex {example}"] = read_launches(K)
+            with open(os.path.join(EXAMPLES_DATA, example + ".txt")) as f:
+                want = f.read()
+            got = buf.getvalue()
+            for line in got.splitlines():
+                log(f"[ex] {example}> {line}")
+            if not (got == want if exact else
+                    masked(got, example) == masked(want, example)):
+                raise AssertionError(f"ex {example}: the output differs from "
+                                     f"the reference's transcript:\n{got}")
+            if any(n[k] <= 0 for k in needs):
+                raise AssertionError(f"ex {example}: a kernel of its path "
+                                     f"never launched: {n}")
+            log(f"[ex] {example}: {dt:.3f} s, output equals the reference's "
+                f"transcript{'' if exact else ' outside its masks'}; "
+                f"launches {json.dumps(n)}")
+    finally:
+        K.bitmap.bitmap_vm, K.delta.xor_delta_ragged = orig_vm, orig_ragged
+    return launches, vm_inputs, delta_inputs
+
 class Bench:
     """Shared tools of the kernel phases: seeded random words on the card,
     exact comparison, CUDA-event times of a C entry point, and the bound."""
@@ -2193,7 +2297,11 @@ def vm_and_xor_phases(B: Bench, K, bitmap_inputs, delta_inputs,
                                            "P")},
           "sv_restore_1": {k: dict(rows)["sv restore 1"][k]
                            for k in ("ms", "event_ms", "cold_ms", "plain_ms",
-                                     "bound_ms", "S", "W", "P")}}
+                                     "bound_ms", "S", "W", "P")},
+          "ex": {name: {k: r[k] for k in ("ms", "event_ms", "cold_ms",
+                                          "plain_ms", "bound_ms", "S", "W",
+                                          "P")}
+                 for name, r in rows if name.startswith("ex ")}}
 
     # ---- xor_delta: the ragged entry at every launch the k3 path made
     # (its build's and compaction's, and its waves' decode levels), then the
@@ -2212,7 +2320,7 @@ def vm_and_xor_phases(B: Bench, K, bitmap_inputs, delta_inputs,
                                  f"rows, {p.numel()} words) disagrees: {e}")
         err = max(err, e)
     log(f"[kernels] xor_delta ragged: all {len(delta_inputs)} launches of "
-        "the k3 path bit-exact")
+        "the k3 and ex paths bit-exact")
 
     def shifted(N, W, shift):
         return B.words(N * W + shift)[shift:].view(N, W)
@@ -2246,6 +2354,11 @@ def vm_and_xor_phases(B: Bench, K, bitmap_inputs, delta_inputs,
     waves = by_words("wave") + by_words("wave after compaction")
     if waves:
         ragged["k3 decode median"] = waves[len(waves) // 2]
+    # every shape of the ex path's launches (its examples' flushes and reads)
+    for x in delta_inputs:
+        if x[0].startswith("ex "):
+            ragged.setdefault(f"{x[0]} ({x[3].numel() - 1}, {x[1].numel()})",
+                              x)
     xrows = {}
 
     def xrow(name, N, rows_words, t, plain, wrapper, half, half_dev, nbytes):
@@ -2297,7 +2410,10 @@ def vm_and_xor_phases(B: Bench, K, bitmap_inputs, delta_inputs,
           "k3_decode_median": xrows.get("k3 decode median"),
           "n80957": xrows["80957"], "n65536": xrows["65536"],
           "tr_launch": xrows["tr xor_delta_stats"],
-          "tr_unaligned": xrows["tr shape, unaligned"]}
+          "tr_unaligned": xrows["tr shape, unaligned"],
+          "ex": {name: {k: r[k] for k in ("ms", "event_ms", "cold_ms",
+                                          "plain_ms", "bound_ms", "shape")}
+                 for name, r in xrows.items() if name.startswith("ex ")}}
     return [vm, xd]
 
 
@@ -2549,6 +2665,10 @@ def main() -> int:
     launches["sd"] = main_path_sd(args, torch, dev, K, tr_ckpt)
     del tr_ckpt
     free("sd")
+    ex_launches, ex_bitmap_inputs, ex_delta_inputs = main_path_ex(torch, K)
+    launches.update(ex_launches)
+    delta_inputs += ex_delta_inputs
+    free("ex")
     bitmap_inputs = ([(f"k1 wave {i}", r, p)
                       for i, (r, p) in enumerate(bitmap_inputs)]
                      + [(f"ops wave {i}", r, p)
@@ -2556,7 +2676,9 @@ def main() -> int:
                      + [(f"tr partial restore {i}", r, p)
                         for i, (r, p) in enumerate(tr_bitmap_inputs)]
                      + [(f"sv restore {i}", r, p)
-                        for i, (r, p) in enumerate(sv_bitmap_inputs)])
+                        for i, (r, p) in enumerate(sv_bitmap_inputs)]
+                     + [(f"{ex} {i}", r, p)
+                        for i, (ex, r, p) in enumerate(ex_bitmap_inputs)])
     B = Bench(torch, dev)
     kernels = vm_and_xor_phases(B, K, bitmap_inputs, delta_inputs,
                                 tr_xor_shape, launches)

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 import repro_torch
+from chip_smoke import load_example
 from repro_torch.core import RStore, ShardedDeviceKVS, VersionGraph
 from repro_torch.core.index import Projections
 from repro_torch.configs import ARCHS
@@ -60,13 +61,43 @@ def test_port_imports_no_jax_and_no_reference():
                    timeout=120)
 
 
-def test_chip_smoke_imports_no_jax_and_no_reference():
-    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+def _assert_no_jax_or_reference_import(path):
+    with open(path) as f:
         src = f.read()
     for line in src.splitlines():
         words = line.split()
         if words[:1] in (["import"], ["from"]):
             assert words[1].split(".")[0] not in ("jax", "repro"), line
+
+
+def test_chip_smoke_imports_no_jax_and_no_reference():
+    _assert_no_jax_or_reference_import(os.path.join(ROOT, "chip_smoke.py"))
+
+
+EXAMPLES = sorted(f for f in os.listdir(os.path.join(ROOT, "examples"))
+                  if f.endswith("_torch.py"))
+
+
+def test_every_example_has_its_port():
+    assert EXAMPLES == ["ehr_analytics_torch.py", "quickstart_torch.py",
+                        "serve_demo_torch.py", "versioned_training_torch.py"]
+
+
+@pytest.mark.parametrize("file", EXAMPLES)
+def test_example_imports_no_jax_and_no_reference(file):
+    """Each port example names neither JAX nor the reference package, and
+    importing it loads neither."""
+    _assert_no_jax_or_reference_import(os.path.join(ROOT, "examples", file))
+    code = (
+        "import importlib.util, sys\n"
+        f"spec = importlib.util.spec_from_file_location('ex', {file!r})\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'repro' or m.startswith('repro.')]\n"
+        "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
+                   cwd=os.path.join(ROOT, "examples"),
+                   env=dict(os.environ, PYTHONPATH=""))
 
 
 def _one_version_graph() -> VersionGraph:
@@ -100,7 +131,7 @@ def _one_version_graph() -> VersionGraph:
     lambda: launch_serve.run(["--reduced", "--batch", "1", "--gen", "2"]),
     lambda: zero_cache(ARCHS["smollm-360m"].reduced(), 1, 4),
     lambda: make_debug_mesh(),
-])
+] + [lambda f=f: load_example(f).main([]) for f in EXAMPLES])
 def test_default_device_is_the_card(entry):
     """With no device given, an entry point asks for CUDA and raises here
     instead of quietly running the plain versions on the CPU."""

@@ -1,0 +1,6 @@
+"""KVS: bytes the router fetched per wave (``KVSStats.bytes_fetched``)."""
+COUNTERS = {"bytes_fetched": "kvs:stats.bytes_fetched"}
+
+
+def read(obs):
+    return obs.per_unit(obs.counter("bytes_fetched"))

@@ -69,6 +69,7 @@ from typing import (Any, Callable, Dict, Iterable, List, Optional, Sequence,
 
 import numpy as np
 
+from .. import trace
 from . import costmodel
 from . import plan as plan_mod
 from .chunkstore import ChunkMap, StoredChunk
@@ -181,7 +182,14 @@ class Snapshot:
     def plan_batch(self, queries: Sequence[Query]) -> List[PlannedQuery]:
         """Physical plans (mode + candidate chunks) for a batch — every
         launch-needing query shares ONE fused bitmap-program launch."""
-        return self._planner().plan_batch(list(queries))
+        tr = trace.ACTIVE
+        if tr is not None:
+            tr.open("read.plan")
+        try:
+            return self._planner().plan_batch(list(queries))
+        finally:
+            if tr is not None:
+                tr.close()
 
     def plan(self, queries: Sequence[Query]) -> List[np.ndarray]:
         """Candidate chunk ids per query (the legacy entry point — now a
@@ -286,7 +294,17 @@ class Snapshot:
 
     # ------------------------------------------------------------- execute
     def execute(self, queries: Sequence[Query]) -> BatchResult:
-        """Plan → dedupe → ONE interleaved multiget → answer."""
+        """Plan → dedupe → ONE interleaved multiget → answer.
+
+        Traced as a ``read.request`` unless a span is open already
+        (``StoreQueryEngine.serve`` opens the request)."""
+        tr = trace.ACTIVE
+        if tr is None or tr.stack:
+            return self._execute(queries, tr)
+        return tr.call("read.request", self._execute, queries, tr)
+
+    def _execute(self, queries: Sequence[Query],
+                 tr: Optional[trace.Tracer]) -> BatchResult:
         self._check_fresh()
         planned = self.plan_batch(queries)
 
@@ -306,7 +324,8 @@ class Snapshot:
             # Under a CachingKVS the hit/miss partition happens inside this
             # multiget — cached keys are served from memory and ONE inner
             # fetch covers the misses, so kvs_queries is 0 on a warm cache.
-            blobs = self.kvs.multiget(keys)
+            blobs = (self.kvs.multiget(keys) if tr is None else
+                     tr.call("read.gather", self.kvs.multiget, keys))
             batch.kvs_queries = self.kvs.stats.n_queries - q0
             batch.bytes_fetched = self.kvs.stats.bytes_fetched - b0
             batch.cache_hits = self.kvs.stats.n_cache_hits - h0
@@ -339,11 +358,14 @@ class Snapshot:
                                      if pq.needs_payload and len(pq.cand)
                                      else 0),
             )
-            value = plan_mod.answer(pq, ctx, stats)
+            value = (plan_mod.answer(pq, ctx, stats) if tr is None else
+                     tr.call("read.answer", plan_mod.answer, pq, ctx, stats))
             batch.records_returned += stats.records_returned
             batch.irrelevant_chunks += stats.irrelevant_chunks
             results.append(QueryResult(query=pq.query, value=value,
                                        stats=stats))
+        if tr is not None:
+            tr.add("records_returned", batch.records_returned)
         return BatchResult(results, batch)
 
     def _exec_context(self, fetched: Dict[int, Tuple[Optional[StoredChunk],

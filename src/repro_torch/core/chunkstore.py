@@ -18,6 +18,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import trace
 from ..kernels import ops as kops
 from .version_graph import VersionGraph
 
@@ -57,13 +58,22 @@ class ChunkMap:
 
     @staticmethod
     def from_bytes(buf: bytes) -> "ChunkMap":
-        n_rec, w, n_ver, clen = struct.unpack_from("<IIII", buf, 0)
-        off = 16
-        cks = np.frombuffer(buf, dtype="<i8", count=n_rec, offset=off).astype(np.int64)
-        off += n_rec * 8
-        raw = zlib.decompress(buf[off:off + clen])
-        bitmap = np.frombuffer(raw, dtype="<u4").reshape(n_rec, w).astype(np.uint32)
-        return ChunkMap(cks=cks, bitmap=bitmap, n_versions=n_ver)
+        tr = trace.ACTIVE
+        if tr is not None:
+            tr.open("read.parse.map")
+        try:
+            n_rec, w, n_ver, clen = struct.unpack_from("<IIII", buf, 0)
+            off = 16
+            cks = np.frombuffer(buf, dtype="<i8", count=n_rec,
+                                offset=off).astype(np.int64)
+            off += n_rec * 8
+            raw = zlib.decompress(buf[off:off + clen])
+            bitmap = np.frombuffer(raw, dtype="<u4").reshape(
+                n_rec, w).astype(np.uint32)
+            return ChunkMap(cks=cks, bitmap=bitmap, n_versions=n_ver)
+        finally:
+            if tr is not None:
+                tr.close()
 
 
 # --------------------------------------------------------------- stored chunk
@@ -107,11 +117,38 @@ class StoredChunk:
         Delta parents precede their children within a sub-chunk
         (``parent_pos[i] < i``, tree order), so records decode level by
         level of the sub-chunk trees: one ``xor_delta_pairs`` call per level
-        for the whole chunk.  Singleton sub-chunks (k=1) need none."""
+        for the whole chunk.  Singleton sub-chunks (k=1) need none.
+
+        Traced as one ``read.decode`` a chunk, its zlib pass one
+        ``read.decode.inflate`` and its levels one ``read.decode.delta``;
+        counts ``chunks_decoded`` and ``records_decoded``."""
+        tr = trace.ACTIVE
+        if tr is None:
+            return self._decode(device, None)
+        tr.add("chunks_decoded", 1)
+        tr.add("records_decoded", len(self.cks))
+        return tr.call("read.decode", self._decode, device, tr)
+
+    def _decode(self, device, tr: Optional[trace.Tracer]
+                ) -> Dict[int, bytes]:
+        decoded, by_level = (self._inflate() if tr is None else
+                             tr.call("read.decode.inflate", self._inflate))
+        if by_level:
+            if tr is None:
+                self._undelta(decoded, by_level, device)
+            else:
+                tr.call("read.decode.delta", self._undelta, decoded, by_level,
+                        device)
         out: Dict[int, bytes] = {}
+        for sc, dec in zip(self.subchunks, decoded):
+            out.update(zip(sc.local_ids, dec))
+        return out
+
+    def _inflate(self):
+        """Each sub-chunk's records as stored, raw ones decoded; and by
+        tree level, the delta-encoded ones: (sub-chunk, position, parent
+        position, true length, stored piece)."""
         decoded: List[List[Optional[bytes]]] = []
-        # level -> [(sub-chunk, position, parent position, true length,
-        #            stored piece)]
         by_level: Dict[int, List[Tuple[int, int, int, int, bytes]]] = {}
         for s, sc in enumerate(self.subchunks):
             raw = zlib.decompress(sc.blob)
@@ -134,6 +171,12 @@ class StoredChunk:
                     by_level.setdefault(level[i], []).append(
                         (s, i, p, ln, piece))
             decoded.append(dec)
+        return decoded, by_level
+
+    @staticmethod
+    def _undelta(decoded, by_level, device) -> None:
+        """XOR each level's deltas onto their decoded parents, one
+        ``xor_delta_pairs`` call a level, in place."""
         for lvl in sorted(by_level):
             items = by_level[lvl]
             parents = [decoded[s][p].ljust(len(piece), b"\0")
@@ -142,9 +185,6 @@ class StoredChunk:
                 parents, [piece for *_, piece in items], device=device)
             for (s, i, _, ln, _), pl in zip(items, plain):
                 decoded[s][i] = pl[:ln]
-        for sc, dec in zip(self.subchunks, decoded):
-            out.update(zip(sc.local_ids, dec))
-        return out
 
     # ------------------------------------------------------------ serialization
     def to_bytes(self) -> bytes:
@@ -163,26 +203,34 @@ class StoredChunk:
 
     @staticmethod
     def from_bytes(buf: bytes) -> "StoredChunk":
-        cid, n_rec, n_sub = _HEAD.unpack_from(buf, 0)
-        off = 12
-        cks = np.frombuffer(buf, dtype="<i8", count=n_rec, offset=off).astype(np.int64)
-        off += 8 * n_rec
-        subs = []
-        raw = 0
-        for _ in range(n_sub):
-            n, blen = _SUB_HEAD.unpack_from(buf, off)
-            off += 8
-            cols = _sub_cols(n).unpack_from(buf, off)
-            off += 12 * n
-            lengths = cols[2 * n:]
-            raw += sum(lengths)
-            subs.append(SubChunkBlob(cols[:n], cols[n:2 * n], lengths,
-                                     buf[off:off + blen]))
-            off += blen
-        sc = StoredChunk(chunk_id=cid, cks=cks, subchunks=subs)
-        sc.stored_bytes = len(buf)
-        sc.raw_bytes = raw
-        return sc
+        tr = trace.ACTIVE
+        if tr is not None:
+            tr.open("read.parse.chunk")
+        try:
+            cid, n_rec, n_sub = _HEAD.unpack_from(buf, 0)
+            off = 12
+            cks = np.frombuffer(buf, dtype="<i8", count=n_rec,
+                                offset=off).astype(np.int64)
+            off += 8 * n_rec
+            subs = []
+            raw = 0
+            for _ in range(n_sub):
+                n, blen = _SUB_HEAD.unpack_from(buf, off)
+                off += 8
+                cols = _sub_cols(n).unpack_from(buf, off)
+                off += 12 * n
+                lengths = cols[2 * n:]
+                raw += sum(lengths)
+                subs.append(SubChunkBlob(cols[:n], cols[n:2 * n], lengths,
+                                         buf[off:off + blen]))
+                off += blen
+            sc = StoredChunk(chunk_id=cid, cks=cks, subchunks=subs)
+            sc.stored_bytes = len(buf)
+            sc.raw_bytes = raw
+            return sc
+        finally:
+            if tr is not None:
+                tr.close()
 
 
 # -------------------------------------------------------------------- builder

@@ -54,6 +54,7 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import trace
 from ..device import DeviceLike, resolve_device
 from ..kernels import ops as kops
 from .chunkstore import build_chunk_map, finish_chunk, stage_chunk
@@ -120,6 +121,13 @@ class WriteSession:
         self._async = async_mode
         self._closed = False
         self.staged: List[int] = []        # vids committed through this session
+        self._request: Optional[int] = None   # its trace request id
+
+    def _trace_request(self, tr: trace.Tracer) -> int:
+        """The session's request id: every span of one session shares it."""
+        if self._request is None:
+            self._request = tr.new_request()
+        return self._request
 
     # ------------------------------------------------------------- staging
     def _check_open(self) -> None:
@@ -128,16 +136,23 @@ class WriteSession:
 
     def init_root(self, records: Dict[int, bytes]) -> int:
         self._check_open()
-        vid = self._rs._stage_root(records)
+        tr = trace.ACTIVE
+        vid = (self._rs._stage_root(records) if tr is None else
+               tr.call("write.stage", self._rs._stage_root, records,
+                       request=self._trace_request(tr)))
         self.staged.append(vid)
         return vid
 
     def commit(self, parents: Sequence[int], adds: Dict[int, bytes],
                dels: Iterable[int] = ()) -> int:
         """Stage a new version as a delta from ``parents[0]`` (extra parents
-        form a merge; their exclusive keys are pulled in per Fig. 4)."""
+        form a merge; their exclusive keys are pulled in per Fig. 4).
+        Traced as ``write.stage``."""
         self._check_open()
-        vid = self._rs._stage_commit(parents, adds, dels)
+        tr = trace.ACTIVE
+        vid = (self._rs._stage_commit(parents, adds, dels) if tr is None else
+               tr.call("write.stage", self._rs._stage_commit, parents, adds,
+                       dels, request=self._trace_request(tr)))
         self.staged.append(vid)
         return vid
 
@@ -169,8 +184,9 @@ class WriteSession:
             rs._writer = saved
 
     def close(self) -> None:
-        """Group-flush the session (idempotent).  Async sessions just
-        deregister — drains belong to the flusher's watermarks."""
+        """Group-flush the session (idempotent), traced as ``write.flush``.
+        Async sessions just deregister — drains belong to the flusher's
+        watermarks."""
         if self._closed:
             return
         self._closed = True
@@ -181,7 +197,12 @@ class WriteSession:
             return
         self._rs._writer = None
         if self._flush_on_close:
-            self._rs.flush()
+            tr = trace.ACTIVE
+            if tr is None:
+                self._rs.flush()
+            else:
+                tr.call("write.flush", self._rs.flush,
+                        request=self._trace_request(tr))
         else:
             self._rs._maybe_flush()
 
@@ -511,8 +532,16 @@ class RStore:
         batch = self.pending
         self.pending = []
         writes = self._prepare_flush_writes(batch)
-        self.kvs.multiput(writes)
+        self._put(writes)
         self._flushed_versions = self.graph.num_versions
+
+    def _put(self, writes: List[Tuple[str, bytes]]) -> None:
+        """The group commit's one ``multiput``, traced as ``write.put``."""
+        tr = trace.ACTIVE
+        if tr is None:
+            self.kvs.multiput(writes)
+        else:
+            tr.call("write.put", self.kvs.multiput, writes)
 
     def _prepare_flush_writes(self, batch: List[int]) -> List[Tuple[str, bytes]]:
         """Online-chunk ``batch`` and stage its physical writes — new
@@ -520,7 +549,40 @@ class RStore:
         touching the backend.  All in-memory layout state (r2c, proj,
         chunk bookkeeping) is advanced here; the caller owns the one
         ``multiput`` that makes it durable (flush() immediately, the
-        BackgroundFlusher on its own drain schedule)."""
+        BackgroundFlusher on its own drain schedule).
+
+        Traced as ``write.partition`` (the online partition and the layout
+        bookkeeping), ``write.chunks`` (the record-version CSR, the new
+        chunks and their maps) and ``write.maps`` (the maps of the old
+        chunks the batch's versions reach, counted as ``maps_rebuilt``)."""
+        tr = trace.ACTIVE
+        # stage new chunks + rebuilt old chunk maps, commit in ONE multiput
+        if tr is None:
+            part, affected_old = self._place_batch(batch)
+            writes, csr = self._stage_new_chunks(part)
+            writes += self._rebuild_maps(affected_old, csr)
+        else:
+            part, affected_old = tr.call("write.partition",
+                                         self._place_batch, batch)
+            writes, csr = tr.call("write.chunks", self._stage_new_chunks, part)
+            writes += tr.call("write.maps", self._rebuild_maps, affected_old,
+                              csr)
+            tr.add("maps_rebuilt", len(affected_old))
+        # secondary indexes: extend postings for the batch's new chunks —
+        # dirty idx2/ buckets ride the same group commit
+        if self._indexes:
+            new_chunks = [(c.chunk_id, c.record_ids) for c in part.chunks]
+            for idx in self._indexes.values():
+                idx.add_chunks(new_chunks, self.graph.store.payload)
+                iw, idel = idx.stage_writes()
+                writes.extend(iw)
+                assert not idel, "appending chunks never empties a bucket"
+        return writes
+
+    def _place_batch(self, batch: List[int]
+                     ) -> Tuple[Partitioning, np.ndarray]:
+        """Online-partition ``batch`` and advance r2c and the projections;
+        returns the partition and the old chunks its versions reach."""
         placed = self.r2c >= 0
         part = partition_batch(self.graph, batch, placed,
                                self.config.algorithm, self.config.capacity,
@@ -547,27 +609,23 @@ class RStore:
         new_rids = (np.concatenate([c.record_ids for c in part.chunks])
                     if part.chunks else np.empty(0, np.int64))
         self.proj.extend_keys(keys[new_rids], self.r2c[new_rids])
+        return part, affected_old
 
-        # stage new chunks + rebuilt old chunk maps, commit in ONE multiput
+    def _stage_new_chunks(self, part, sub_groups_of: Optional[Dict] = None):
+        """The record-version CSR of every version, and the staged writes
+        of ``part``'s chunks and maps; returns (writes, CSR)."""
         csr = self.graph.record_version_index_csr()
         nv = self.graph.num_versions
         vidx_of = {v: i for i, v in enumerate(self.graph.versions)}
-        writes = self._stage_chunk_writes(part.chunks, vidx_of, nv, csr)
-        for cid in affected_old:
-            cid = int(cid)
-            cmap = build_chunk_map(self.graph, self._chunk_records[cid], nv,
-                                   csr)
-            writes.append((f"map/{cid}", cmap.to_bytes()))
-        # secondary indexes: extend postings for the batch's new chunks —
-        # dirty idx2/ buckets ride the same group commit
-        if self._indexes:
-            new_chunks = [(c.chunk_id, c.record_ids) for c in part.chunks]
-            for idx in self._indexes.values():
-                idx.add_chunks(new_chunks, self.graph.store.payload)
-                iw, idel = idx.stage_writes()
-                writes.extend(iw)
-                assert not idel, "appending chunks never empties a bucket"
-        return writes
+        return self._stage_chunk_writes(part.chunks, vidx_of, nv, csr,
+                                        sub_groups_of), csr
+
+    def _rebuild_maps(self, chunk_ids, csr) -> List[Tuple[str, bytes]]:
+        """New maps of old chunks (their payload blobs do not change)."""
+        nv = self.graph.num_versions
+        return [(f"map/{int(cid)}", build_chunk_map(
+                    self.graph, self._chunk_records[int(cid)], nv,
+                    csr).to_bytes()) for cid in chunk_ids]
 
     def _partitioner(self):
         """The configured offline partitioner; one that runs a kernel
@@ -588,6 +646,38 @@ class RStore:
             self._flusher.drain()
         self._build_epoch += 1
         self.pending = []
+        tr = trace.ACTIVE
+        part, sub_groups_of = (self._partition_all() if tr is None else
+                               tr.call("write.partition", self._partition_all))
+        old_ids = set(self._chunk_records)
+        self._chunk_records = {}
+        self._chunk_bytes = {}
+        writes, _ = (self._stage_new_chunks(part, sub_groups_of) if tr is None
+                     else tr.call("write.chunks", self._stage_new_chunks, part,
+                                  sub_groups_of))
+        # GC: chunk ids of the previous layout that the rebuild did not
+        # reuse would otherwise stay in the KVS forever (a rebuild can
+        # shrink the chunk count — especially after retention pruning)
+        stale = sorted(old_ids - set(self._chunk_records))
+        stale_keys = [k for c in stale for k in (f"chunk/{c}", f"map/{c}")]
+        # secondary indexes: recompute postings over the new layout inside
+        # the same group commit; buckets that emptied out (all their values
+        # lived only in retired versions) join the stale-key GC
+        for idx in self._indexes.values():
+            idx.rebuild(self._chunk_records, self.graph.store.payload)
+            iw, idel = idx.stage_writes()
+            writes.extend(iw)
+            stale_keys.extend(idel)
+        self._put(writes)              # one group commit, even for rebuilds
+        self.kvs.multidelete(stale_keys)
+        self._notify_layout_change(stale_keys)
+        self._flushed_versions = self.graph.num_versions
+        return part
+
+    def _partition_all(self) -> Tuple[Partitioning, Dict]:
+        """Partition every version anew (at k>1, over the sub-chunk groups)
+        and rebuild r2c and the projections; returns the partition and each
+        chunk's sub-chunk groups."""
         cfg = self.config
         graph = self.graph
         if cfg.k > 1:
@@ -614,33 +704,7 @@ class RStore:
 
         self.n_chunks = part.num_chunks
         self.proj = Projections.build_from_r2c(graph, self.r2c, self.n_chunks)
-
-        csr = graph.record_version_index_csr()
-        nv = graph.num_versions
-        vidx_of = {v: i for i, v in enumerate(graph.versions)}
-        old_ids = set(self._chunk_records)
-        self._chunk_records = {}
-        self._chunk_bytes = {}
-        writes = self._stage_chunk_writes(part.chunks, vidx_of, nv, csr,
-                                          sub_groups_of)
-        # GC: chunk ids of the previous layout that the rebuild did not
-        # reuse would otherwise stay in the KVS forever (a rebuild can
-        # shrink the chunk count — especially after retention pruning)
-        stale = sorted(old_ids - set(self._chunk_records))
-        stale_keys = [k for c in stale for k in (f"chunk/{c}", f"map/{c}")]
-        # secondary indexes: recompute postings over the new layout inside
-        # the same group commit; buckets that emptied out (all their values
-        # lived only in retired versions) join the stale-key GC
-        for idx in self._indexes.values():
-            idx.rebuild(self._chunk_records, graph.store.payload)
-            iw, idel = idx.stage_writes()
-            writes.extend(iw)
-            stale_keys.extend(idel)
-        self.kvs.multiput(writes)      # one group commit, even for rebuilds
-        self.kvs.multidelete(stale_keys)
-        self._notify_layout_change(stale_keys)
-        self._flushed_versions = graph.num_versions
-        return part
+        return part, sub_groups_of
 
     # -------------------------------------------------- retention/compaction
     def retain(self, policy: RetentionPolicy) -> List[int]:

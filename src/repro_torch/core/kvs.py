@@ -53,6 +53,7 @@ from typing import Dict, Iterable, List, Optional, Protocol, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..device import resolve_device
 from .costmodel import BANDWIDTH_BPS, PER_QUERY_S
 
@@ -469,8 +470,11 @@ class ShardedDeviceKVS:
             return []
         metas = [self._dir[k] for k in keys]
         idx = np.concatenate([np.arange(s, s + n) for s, n, _ in metas])
-        rows = self._table.index_select(
-            0, torch.from_numpy(idx).to(self.device)).cpu().numpy()
+        sel = self._table.index_select(
+            0, torch.from_numpy(idx).to(self.device))
+        tr = trace.ACTIVE
+        rows = (sel.cpu() if tr is None
+                else tr.call("device.wait", sel.cpu)).numpy()
         flat = rows.tobytes()
         out: List[bytes] = []
         off = 0

@@ -15,6 +15,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..device import DeviceLike, resolve_device
 from . import bitmap as _bitmap
 from . import deltaenc as _deltaenc
@@ -34,6 +35,13 @@ def _to_device(words: np.ndarray, device: torch.device) -> torch.Tensor:
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy().view(np.uint32)
+
+
+def _results(words: torch.Tensor, counts: torch.Tensor
+             ) -> Tuple[np.ndarray, np.ndarray]:
+    """A launch's words and counts on the host.  The copies wait for the
+    launch (they are the host's ``device.wait`` spans)."""
+    return _to_host(words), counts.cpu().numpy()
 
 
 # ------------------------------------------------------------------ minhash
@@ -76,7 +84,9 @@ def xor_delta_batch(parent: np.ndarray, child: np.ndarray, *,
     dev = resolve_device(device)
     d, cnt = _deltaenc.xor_delta(_to_device(parent, dev),
                                  _to_device(child, dev))
-    return _to_host(d), cnt.cpu().numpy()
+    tr = trace.ACTIVE
+    return (_results(d, cnt) if tr is None
+            else tr.call("device.wait", _results, d, cnt))
 
 
 def xor_delta_pairs(parents: Sequence[bytes], children: Sequence[bytes], *,
@@ -128,10 +138,13 @@ def xor_delta_pairs(parents: Sequence[bytes], children: Sequence[bytes], *,
         d, cnt = _deltaenc.xor_delta_ragged(
             buf[:total], buf[span:span + total],
             buf[2 * span:].view(torch.int64))
-        flat = _to_host(d).tobytes()
+        tr = trace.ACTIVE
+        d, cnt = (_results(d, cnt) if tr is None
+                  else tr.call("device.wait", _results, d, cnt))
+        flat = d.tobytes()
         out.extend(flat[4 * int(o):4 * int(o) + int(ln)]
                    for o, ln in zip(off[:-1], lens[lo:hi]))
-        counts[lo:hi] = cnt.cpu().numpy()
+        counts[lo:hi] = cnt
         lo = hi
     return out, counts
 
@@ -186,7 +199,9 @@ def and_popcount_batch(bitmaps: np.ndarray, row: np.ndarray, *,
     dev = resolve_device(device)
     anded, cnt = _bitmap.and_popcount(_to_device(bitmaps, dev),
                                       _to_device(row, dev))
-    return _to_host(anded), cnt.cpu().numpy()
+    tr = trace.ACTIVE
+    return (_results(anded, cnt) if tr is None
+            else tr.call("device.wait", _results, anded, cnt))
 
 
 def bitmap_vm_batch(regs: np.ndarray, prog: np.ndarray, *,
@@ -210,4 +225,6 @@ def bitmap_vm_batch(regs: np.ndarray, prog: np.ndarray, *,
     out, cnt = _bitmap.bitmap_vm(_to_device(regs, dev),
                                  torch.from_numpy(np.ascontiguousarray(prog))
                                  .to(dev))
-    return _to_host(out), cnt.cpu().numpy()
+    tr = trace.ACTIVE
+    return (_results(out, cnt) if tr is None
+            else tr.call("device.wait", _results, out, cnt))

@@ -17,6 +17,7 @@ from typing import Any, Dict, List, Sequence
 
 import torch
 
+from .. import trace
 from ..models.config import ModelConfig
 from ..models.model import build_model
 
@@ -57,8 +58,16 @@ class StoreQueryEngine:
         return snap
 
     def serve(self, queries: Sequence[Any]):
-        """Execute one wave → :class:`~repro_torch.core.plan.BatchResult`."""
-        batch = self._fresh_snapshot().execute(list(queries))
+        """Execute one wave → :class:`~repro_torch.core.plan.BatchResult`
+        (traced as one ``read.request``)."""
+        tr = trace.ACTIVE
+        if tr is not None:
+            tr.open("read.request")
+        try:
+            batch = self._fresh_snapshot().execute(list(queries))
+        finally:
+            if tr is not None:
+                tr.close()
         self.waves_served += 1
         return batch
 

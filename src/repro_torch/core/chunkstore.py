@@ -14,7 +14,7 @@ import functools
 import struct
 import zlib
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -92,6 +92,7 @@ class SubChunkBlob:
 
 _HEAD = struct.Struct("<III")
 _SUB_HEAD = struct.Struct("<II")
+_U32 = struct.Struct("<I")
 
 
 @functools.lru_cache(maxsize=None)
@@ -100,24 +101,131 @@ def _sub_cols(n: int) -> struct.Struct:
     return struct.Struct(f"<{3 * n}i")
 
 
-@dataclass
+class SubChunkDirectory(NamedTuple):
+    """Where a stored chunk's sub-chunks lie in its encoding, as flat
+    arrays: read in place, with no object a sub-chunk or a record."""
+
+    sub_start: np.ndarray   # (n_sub + 1,) CSR of records over sub-chunks
+    blob_off: np.ndarray    # (n_sub,) offset of each zlib blob
+    blob_len: np.ndarray    # (n_sub,)
+    local_ids: np.ndarray   # (n_rec,) int32, sub-chunk after sub-chunk
+    parent_pos: np.ndarray  # (n_rec,) int32, -1 = stored raw
+    lengths: np.ndarray     # (n_rec,) int32 true payload lengths
+    singletons: bool        # every sub-chunk one record, stored raw
+
+
+def _gather_i32(u8: np.ndarray, at: np.ndarray, k: int) -> np.ndarray:
+    """The ``k`` little-endian int32 that start at each byte offset ``at``
+    (offsets need no alignment): shape ``(len(at), k)``."""
+    return u8[at[:, None] + np.arange(4 * k)].view("<i4")
+
+
+def _walk(buf, off: int, n_sub: int, singletons: bool) -> np.ndarray:
+    """The offset of each sub-chunk head, from the one before it: a
+    singleton entry is ``20 + blob_len`` bytes, any entry ``8 + 12 n +
+    blob_len``."""
+    heads = []
+    append = heads.append
+    if singletons:
+        blob_len = _U32.unpack_from
+        for _ in range(n_sub):
+            append(off)
+            off += 20 + blob_len(buf, off + 4)[0]
+    else:
+        sub_head = _SUB_HEAD.unpack_from
+        for _ in range(n_sub):
+            append(off)
+            n, blen = sub_head(buf, off)
+            off += 8 + 12 * n + blen
+    return np.array(heads, dtype=np.int64)
+
+
+def _directory(buf, off: int, n_rec: int, n_sub: int) -> SubChunkDirectory:
+    """The directory of the sub-chunks that start at ``off``.  Where the
+    header counts as many sub-chunks as records, each is taken to be a
+    singleton, whose columns sit at fixed offsets from its head (every k=1
+    chunk); otherwise, or where a head says otherwise, the columns are
+    gathered through the CSR of records over sub-chunks."""
+    u8 = np.frombuffer(buf, dtype=np.uint8)
+    if n_sub == n_rec:
+        try:
+            heads = _walk(buf, off, n_sub, True)
+            ent = _gather_i32(u8, heads, 5)     # n, blob_len, id, parent, len
+        except (struct.error, IndexError):      # walked off: a longer head
+            ent = None
+        # where every head reads n = 1, the general walk is this one
+        if ent is not None and (ent[:, 0] == 1).all():
+            return SubChunkDirectory(
+                np.arange(n_sub + 1, dtype=np.int64), heads + 20,
+                ent[:, 1].astype(np.int64), ent[:, 2], ent[:, 3], ent[:, 4],
+                True)
+    heads = _walk(buf, off, n_sub, False)
+    hd = _gather_i32(u8, heads, 2).astype(np.int64)
+    n, blen = hd[:, 0], hd[:, 1]
+    sub_start = np.zeros(n_sub + 1, dtype=np.int64)
+    np.cumsum(n, out=sub_start[1:])
+    sub = np.repeat(np.arange(n_sub), n)
+    # record j of sub-chunk s: its three columns 4 n_s bytes apart
+    col0 = heads[sub] + 8 + 4 * (np.arange(n_rec) - sub_start[sub])
+    at = (col0[:, None] + 4 * n[sub][:, None] * np.arange(3)).ravel()
+    cols = _gather_i32(u8, at, 1).reshape(n_rec, 3)
+    return SubChunkDirectory(sub_start, heads + 8 + 12 * n, blen,
+                             cols[:, 0], cols[:, 1], cols[:, 2], False)
+
+
 class StoredChunk:
-    chunk_id: int
-    cks: np.ndarray                      # (n_rec,) packed composite keys
-    subchunks: List[SubChunkBlob]
-    raw_bytes: int = 0                   # un-encoded payload bytes
-    stored_bytes: int = 0                # encoded (what the KVS holds)
-    # memoized serialization: chunks are write-once, and the build paths
-    # both size the encoding and stage it for the group commit
-    _encoded: Optional[bytes] = field(default=None, repr=False, compare=False)
+    """One physical chunk: its records' composite keys and their payloads
+    in sub-chunks.
+
+    A chunk built on the write side holds its ``subchunks`` (what
+    :meth:`to_bytes` encodes); a chunk parsed by :meth:`from_bytes` holds
+    the fetched buffer and a :class:`SubChunkDirectory` over it, and builds
+    ``subchunks`` from the directory only when asked.  Both decode through
+    the directory of their encoding."""
+
+    def __init__(self, chunk_id: int, cks: np.ndarray,
+                 subchunks: Optional[List[SubChunkBlob]] = None,
+                 raw_bytes: int = 0, stored_bytes: int = 0) -> None:
+        self.chunk_id = chunk_id
+        self.cks = cks                       # (n_rec,) packed composite keys
+        self.raw_bytes = raw_bytes           # un-encoded payload bytes
+        self.stored_bytes = stored_bytes     # encoded (what the KVS holds)
+        self._subchunks = subchunks
+        # memoized serialization: chunks are write-once, and the build paths
+        # both size the encoding and stage it for the group commit; a parsed
+        # chunk's is the buffer it was parsed from
+        self._encoded = None
+        self._dir: Optional[SubChunkDirectory] = None
+
+    @property
+    def subchunks(self) -> List[SubChunkBlob]:
+        if self._subchunks is None:
+            d, buf = self._dir, self._encoded
+            ss = d.sub_start.tolist()
+            ids, ppos, lens = (d.local_ids.tolist(), d.parent_pos.tolist(),
+                               d.lengths.tolist())
+            self._subchunks = [
+                SubChunkBlob(tuple(ids[a:b]), tuple(ppos[a:b]),
+                             tuple(lens[a:b]), bytes(buf[o:o + ln]))
+                for a, b, o, ln in zip(ss, ss[1:], d.blob_off.tolist(),
+                                       d.blob_len.tolist())]
+        return self._subchunks
+
+    def directory(self) -> SubChunkDirectory:
+        if self._dir is None:
+            buf = self.to_bytes()
+            _, n_rec, n_sub = _HEAD.unpack_from(buf, 0)
+            self._dir = _directory(buf, 12 + 8 * n_rec, n_rec, n_sub)
+        return self._dir
 
     def payloads(self, device=None) -> Dict[int, bytes]:
         """Decode every record: local index -> payload bytes.
 
-        Delta parents precede their children within a sub-chunk
-        (``parent_pos[i] < i``, tree order), so records decode level by
-        level of the sub-chunk trees: one ``xor_delta_pairs`` call per level
-        for the whole chunk.  Singleton sub-chunks (k=1) need none.
+        Each zlib blob is read in place through the directory.  Delta
+        parents precede their children within a sub-chunk (``parent_pos[i]
+        < i``, tree order), so records decode level by level of the
+        sub-chunk trees: one ``xor_delta_pairs`` call per level for the
+        whole chunk.  Singleton sub-chunks (k=1) need none.
 
         Traced as one ``read.decode`` a chunk, its zlib pass one
         ``read.decode.inflate`` and its levels one ``read.decode.delta``;
@@ -131,60 +239,71 @@ class StoredChunk:
 
     def _decode(self, device, tr: Optional[trace.Tracer]
                 ) -> Dict[int, bytes]:
-        decoded, by_level = (self._inflate() if tr is None else
-                             tr.call("read.decode.inflate", self._inflate))
-        if by_level:
+        d = self.directory()
+        decoded, levels = (self._inflate(d) if tr is None else
+                           tr.call("read.decode.inflate", self._inflate, d))
+        if levels:
             if tr is None:
-                self._undelta(decoded, by_level, device)
+                self._undelta(decoded, levels, device)
             else:
-                tr.call("read.decode.delta", self._undelta, decoded, by_level,
+                tr.call("read.decode.delta", self._undelta, decoded, levels,
                         device)
-        out: Dict[int, bytes] = {}
-        for sc, dec in zip(self.subchunks, decoded):
-            out.update(zip(sc.local_ids, dec))
-        return out
+        return dict(zip(d.local_ids.tolist(), decoded))
 
-    def _inflate(self):
-        """Each sub-chunk's records as stored, raw ones decoded; and by
-        tree level, the delta-encoded ones: (sub-chunk, position, parent
-        position, true length, stored piece)."""
-        decoded: List[List[Optional[bytes]]] = []
-        by_level: Dict[int, List[Tuple[int, int, int, int, bytes]]] = {}
-        for s, sc in enumerate(self.subchunks):
-            raw = zlib.decompress(sc.blob)
-            lengths, ppos = sc.lengths, sc.parent_pos
-            if len(lengths) == 1 and ppos[0] < 0:      # a raw singleton
-                decoded.append([raw[:lengths[0]]])
-                continue
-            dec: List[Optional[bytes]] = [None] * len(lengths)
-            level = [0] * len(lengths)
-            off = 0
-            for i, (ln, p) in enumerate(zip(lengths, ppos)):
-                # deltas are stored at the max(parent, child) length
-                stored_len = ln if p < 0 else max(ln, lengths[p])
-                piece = raw[off:off + stored_len]
-                off += stored_len
-                if p < 0:
-                    dec[i] = piece[:ln]
-                else:
-                    level[i] = level[p] + 1
-                    by_level.setdefault(level[i], []).append(
-                        (s, i, p, ln, piece))
-            decoded.append(dec)
-        return decoded, by_level
+    def _inflate(self, d: SubChunkDirectory):
+        """Each record as stored, raw ones decoded, in directory order; and
+        by tree level, the delta-encoded ones: (records, their parents,
+        their true lengths)."""
+        mv = memoryview(self._encoded)
+        raws = [zlib.decompress(mv[o:o + ln]) for o, ln in
+                zip(d.blob_off.tolist(), d.blob_len.tolist())]
+        got = np.fromiter(map(len, raws), dtype=np.int64, count=len(raws))
+        if d.singletons:
+            if np.array_equal(got, d.lengths):
+                return raws, []
+            return [r[:ln] for r, ln in zip(raws, d.lengths.tolist())], []
+        ln = d.lengths.astype(np.int64)
+        ppos = d.parent_pos
+        n_rec = len(ln)
+        sub = np.repeat(np.arange(len(raws)), np.diff(d.sub_start))
+        has_p = ppos >= 0
+        par = np.where(has_p, d.sub_start[sub] + ppos, np.arange(n_rec))
+        # deltas are stored at the max(parent, child) length
+        stored = np.where(has_p, np.maximum(ln, ln[par]), ln)
+        start = np.cumsum(stored) - stored
+        base = np.zeros(len(raws) + 1, dtype=np.int64)
+        np.cumsum(got, out=base[1:])
+        # each piece within its own sub-chunk's inflated bytes
+        lo = base[sub] + start - start[d.sub_start[sub]]
+        hi = np.minimum(lo + stored, base[sub + 1])
+        lo = np.minimum(lo, hi)
+        joined = b"".join(raws)
+        decoded = [joined[a:b] for a, b in zip(lo.tolist(), hi.tolist())]
+        # a tree level a pass; a sub-chunk of n records is at most n deep
+        level = np.zeros(n_rec, dtype=np.int64)
+        for _ in range(int(np.diff(d.sub_start).max(initial=0))):
+            nxt = np.where(has_p, level[par] + 1, 0)
+            if np.array_equal(nxt, level):
+                break
+            level = nxt
+        levels = []
+        for lvl in range(1, int(level.max(initial=0)) + 1):
+            recs = np.flatnonzero(level == lvl)
+            levels.append((recs.tolist(), par[recs].tolist(),
+                           ln[recs].tolist()))
+        return decoded, levels
 
     @staticmethod
-    def _undelta(decoded, by_level, device) -> None:
+    def _undelta(decoded, levels, device) -> None:
         """XOR each level's deltas onto their decoded parents, one
         ``xor_delta_pairs`` call a level, in place."""
-        for lvl in sorted(by_level):
-            items = by_level[lvl]
-            parents = [decoded[s][p].ljust(len(piece), b"\0")
-                       for s, _, p, _, piece in items]
+        for recs, parents, lens in levels:
+            pieces = [decoded[j] for j in recs]
             plain, _ = kops.xor_delta_pairs(
-                parents, [piece for *_, piece in items], device=device)
-            for (s, i, _, ln, _), pl in zip(items, plain):
-                decoded[s][i] = pl[:ln]
+                [decoded[p].ljust(len(pc), b"\0")
+                 for p, pc in zip(parents, pieces)], pieces, device=device)
+            for j, ln, pl in zip(recs, lens, plain):
+                decoded[j] = pl[:ln]
 
     # ------------------------------------------------------------ serialization
     def to_bytes(self) -> bytes:
@@ -203,30 +322,24 @@ class StoredChunk:
 
     @staticmethod
     def from_bytes(buf: bytes) -> "StoredChunk":
+        """The chunk ``buf`` encodes, read in place: its header, its keys
+        and the directory of its sub-chunks (:func:`_directory`); ``buf``
+        becomes its encoding.  Traced as ``read.parse.chunk``; counts
+        ``subchunks_parsed``."""
         tr = trace.ACTIVE
         if tr is not None:
             tr.open("read.parse.chunk")
         try:
             cid, n_rec, n_sub = _HEAD.unpack_from(buf, 0)
-            off = 12
             cks = np.frombuffer(buf, dtype="<i8", count=n_rec,
-                                offset=off).astype(np.int64)
-            off += 8 * n_rec
-            subs = []
-            raw = 0
-            for _ in range(n_sub):
-                n, blen = _SUB_HEAD.unpack_from(buf, off)
-                off += 8
-                cols = _sub_cols(n).unpack_from(buf, off)
-                off += 12 * n
-                lengths = cols[2 * n:]
-                raw += sum(lengths)
-                subs.append(SubChunkBlob(cols[:n], cols[n:2 * n], lengths,
-                                         buf[off:off + blen]))
-                off += blen
-            sc = StoredChunk(chunk_id=cid, cks=cks, subchunks=subs)
-            sc.stored_bytes = len(buf)
-            sc.raw_bytes = raw
+                                offset=12).astype(np.int64)
+            d = _directory(buf, 12 + 8 * n_rec, n_rec, n_sub)
+            sc = StoredChunk(chunk_id=cid, cks=cks, stored_bytes=len(buf),
+                             raw_bytes=int(d.lengths.sum(dtype=np.int64)))
+            sc._encoded = buf
+            sc._dir = d
+            if tr is not None:
+                tr.add("subchunks_parsed", n_sub)
             return sc
         finally:
             if tr is not None:

@@ -10,6 +10,7 @@ compression through the full build).  The tolerance is exact equality: the
 store's outputs are bytes and counts.
 """
 import dataclasses
+import zlib
 
 import numpy as np
 import pytest
@@ -565,3 +566,107 @@ def test_build_chunk_single_chunk_matches_reference(grouped):
     assert tch.payloads(device="cpu") == rch.payloads()
     if grouped:
         assert any(p >= 0 for sc in tch.subchunks for p in sc.parent_pos)
+
+
+# ------------------------------------------- parsed chunks read in place
+def _xor(a: bytes, b: bytes) -> bytes:
+    w = max(len(a), len(b))
+    return bytes(x ^ y for x, y in zip(a.ljust(w, b"\0"), b.ljust(w, b"\0")))
+
+
+def _hand_chunk(subs, cid=9):
+    """The same chunk in both packages from sub-chunks of ``(local id,
+    parent position, payload)``: a delta stored at the longer of its and
+    its parent's lengths, each sub-chunk zlib'd at level 6."""
+    from repro.core import chunkstore as rc
+    from repro_torch.core import chunkstore as tc
+    rsubs, tsubs = [], []
+    for sub in subs:
+        ids = tuple(i for i, _, _ in sub)
+        ppos = tuple(p for _, p, _ in sub)
+        lens = tuple(len(pl) for *_, pl in sub)
+        blob = zlib.compress(b"".join(
+            pl if p < 0 else _xor(sub[p][2], pl) for _, p, pl in sub), 6)
+        rsubs.append(rc.SubChunkBlob(np.array(ids, np.int32),
+                                     np.array(ppos, np.int32),
+                                     np.array(lens, np.int32), blob))
+        tsubs.append(tc.SubChunkBlob(ids, ppos, lens, blob))
+    n_rec = sum(map(len, subs))
+    cks = np.arange(1000, 1000 + 7 * n_rec, 7, dtype=np.int64)
+    raw = sum(len(pl) for sub in subs for *_, pl in sub)
+    rch = rc.StoredChunk(chunk_id=cid, cks=cks, subchunks=rsubs, raw_bytes=raw)
+    tch = tc.StoredChunk(chunk_id=cid, cks=cks, subchunks=tsubs, raw_bytes=raw)
+    rch.stored_bytes = len(rch.to_bytes())
+    tch.stored_bytes = len(tch.to_bytes())
+    return rch, tch
+
+
+def _built_chunk(grouped: bool):
+    from repro.core import chunkstore as rc
+    from repro.core import subchunk as rsub
+    from repro_torch.core import chunkstore as tc
+    g, t = _graph_pair(0.1, 0.0, payloads=True, p_d=0.1, seed=8)
+    groups = [grp for grp in rsub.build_subchunks(g, 3) if len(grp) > 1][:12]
+    rids = (np.union1d(np.concatenate(groups), np.arange(20)) if grouped
+            else np.arange(40, 300))
+    args = ({v: i for i, v in enumerate(g.versions)}, g.num_versions)
+    rch, _ = rc.build_chunk(g, rids, 5, *args, g.record_version_index_csr(),
+                            subchunk_groups=groups if grouped else None)
+    tch, _ = tc.build_chunk(t, rids, 5, *args, t.record_version_index_csr(),
+                            subchunk_groups=groups if grouped else None,
+                            device="cpu")
+    return rch, tch
+
+
+def _payload(n: int, seed: int) -> bytes:
+    return np.random.default_rng(seed).integers(0, 256, n,
+                                                dtype=np.uint8).tobytes()
+
+
+PARSED_CHUNKS = {
+    "k1_singletons": lambda: _built_chunk(False),
+    "k3_groups": lambda: _built_chunk(True),
+    # trees of depth 2; parents longer and shorter than their children;
+    # two deltas at one level of one sub-chunk
+    "depth2_unequal_lengths": lambda: _hand_chunk([
+        [(3, -1, _payload(40, 1)), (0, 0, _payload(52, 2)),
+         (5, 1, _payload(30, 3)), (7, 0, _payload(40, 4))],
+        [(1, -1, _payload(17, 5))],
+        [(2, -1, _payload(8, 6)), (4, 0, _payload(8, 7)),
+         (6, 1, _payload(21, 8))]]),
+    "zero_length_payloads": lambda: _hand_chunk([
+        [(0, -1, b"")],
+        [(1, -1, b""), (2, 0, _payload(10, 9)), (3, 1, b"")],
+        [(4, -1, _payload(5, 10))]]),
+    "zero_length_singletons": lambda: _hand_chunk([
+        [(i, -1, _payload(i % 3 * 6, i))] for i in (2, 0, 1, 4, 3)]),
+    "no_records": lambda: _hand_chunk([]),
+}
+
+
+@pytest.mark.parametrize("case", list(PARSED_CHUNKS))
+def test_parsed_chunk_reads_in_place_as_the_reference(case):
+    """``StoredChunk.from_bytes`` of the reference's chunk bytes decodes to
+    the reference's payloads, sizes and keys, keeps those bytes as its
+    encoding, and builds the built chunk's ``subchunks`` when asked."""
+    from repro_torch.core import chunkstore as tc
+    rch, tch = PARSED_CHUNKS[case]()
+    buf = rch.to_bytes()
+    assert tch.to_bytes() == buf
+    parsed = tc.StoredChunk.from_bytes(buf)
+    assert parsed.to_bytes() is buf
+    assert parsed.payloads(device="cpu") == rch.payloads()
+    assert (parsed.chunk_id, parsed.raw_bytes, parsed.stored_bytes) == \
+        (rch.chunk_id, rch.raw_bytes, rch.stored_bytes)
+    np.testing.assert_array_equal(parsed.cks, rch.cks)
+    assert parsed.cks.dtype == np.int64
+    assert parsed.subchunks == tch.subchunks
+    # a built chunk decodes through the directory of its own encoding
+    assert tch.payloads(device="cpu") == rch.payloads()
+    d = parsed.directory()
+    assert d.singletons == (case in ("k1_singletons",
+                                     "zero_length_singletons", "no_records"))
+    if case in ("k3_groups", "depth2_unequal_lengths"):
+        # a record whose delta parent is itself a delta: a second level
+        assert any(sc.parent_pos[p] >= 0 for sc in tch.subchunks
+                   for p in sc.parent_pos if p >= 0)

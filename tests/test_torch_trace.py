@@ -216,3 +216,37 @@ def test_a_span_left_by_an_error_is_closed_with_its_caller():
     trace.disable()
     spans, _ = trace.collect()
     _check_tree(spans)
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_subchunks_parsed_counts_every_parsed_chunks_sub_chunks(k,
+                                                                monkeypatch):
+    """``subchunks_parsed`` is the sum of the header's sub-chunk count over
+    the chunks a batch parsed; with the tracer off nothing is recorded."""
+    import struct
+
+    from repro_torch.core import chunkstore
+    rs = _store(k, _versions(7, 5))
+    engine = StoreQueryEngine(rs)
+    n_subs = []
+    parse = chunkstore.StoredChunk.from_bytes
+
+    def counting(buf):
+        n_subs.append(struct.unpack_from("<III", buf, 0)[2])
+        return parse(buf)
+    monkeypatch.setattr(chunkstore.StoredChunk, "from_bytes",
+                        staticmethod(counting))
+    queries = _wave(4) + [T.Q.version(3)]
+    trace.enable()
+    traced = [r.value for r in engine.serve(queries)]
+    trace.disable()
+    spans, counters = trace.collect()
+    assert counters["subchunks_parsed"] == sum(n_subs) > 0
+    assert sum(s.name == "read.parse.chunk" for s in spans) == len(n_subs)
+    if k == 1:
+        assert counters["subchunks_parsed"] >= counters["records_decoded"]
+    else:
+        assert counters["subchunks_parsed"] < counters["records_decoded"]
+    del n_subs[:]
+    assert [r.value for r in engine.serve(queries)] == traced
+    assert n_subs and trace.collect() == ([], {})

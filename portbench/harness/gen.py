@@ -1,13 +1,19 @@
 """The one traffic generator: a seeded op log and the requests of a mix.
 
-The data is the RStore paper's dataset family A (arXiv:1802.07693, §5.1): a
-linear chain of versions, each touching a share of its parent's live
-records chosen uniformly, split into modifies, inserts and deletes, records
-of a fixed size.  With ``p_d`` a modified record differs from its parent in
-one contiguous span of ``int(record_size * p_d)`` bytes; without it, it is
+The data is the RStore paper's dataset family A (arXiv:1802.07693, §5.1):
+versions each touching a share of their parent's live records chosen
+uniformly, split into modifies, inserts and deletes, records of a fixed
+size.  With ``p_d`` a modified record differs from its parent in one
+contiguous span of ``int(record_size * p_d)`` bytes; without it, it is
 drawn anew.  The pattern is ``chip_smoke.py``'s ``Chain``, vectorised and
 frozen here: the generator keeps no oracle, the op log is what both sides
 get.
+
+The versions form a tree: the traffic kind gives each commit its parent
+(:func:`make_log`), and each branch keeps its own live records.  A2's linear
+chain is the tree in which every parent is the version before
+(:func:`chain`, :func:`make_chain`).  Keys are issued in order over the
+whole tree, so two branches never insert the same key.
 
 A traffic mix is a data file (``traffic/<mix>.json``).  Read mixes list the
 queries of one request (a wave) by kind and say how versions are chosen;
@@ -26,7 +32,7 @@ import numpy as np
 
 @dataclass
 class Commit:
-    """One version of the chain: its parent, the records it writes (keys
+    """One version of the tree: its parent, the records it writes (keys
     and payload ids, modifies then inserts) and the keys it deletes."""
 
     vid: int
@@ -38,9 +44,9 @@ class Commit:
 
 @dataclass
 class OpLog:
-    """A root and a chain of commits over a pool of payload rows: payload id
-    ``i`` is ``payloads[i]``.  Keys are issued in order, so every key ever
-    issued lies in ``[0, max_key)``."""
+    """A root and its commits, in version order, over a pool of payload
+    rows: payload id ``i`` is ``payloads[i]``.  Keys are issued in order, so
+    every key ever issued lies in ``[0, max_key)``."""
 
     record_size: int
     n_base: int
@@ -65,18 +71,29 @@ def rng_for(seed: int, *stream: int) -> np.random.Generator:
     return np.random.default_rng([int(seed) % (1 << 64), *stream])
 
 
-# The shape this generator makes; a configuration that states another is
-# refused rather than quietly generated as this one.
-SHAPE = {"family": "A", "topology": "linear_chain", "update_dist": "random"}
+# The shapes this generator makes; a configuration that states another is
+# refused rather than quietly generated as one of these.
+SHAPE = {"family": ("A",), "topology": ("linear_chain", "tree"),
+         "update_dist": ("random",)}
 
 
-def check_shape(data: Dict) -> None:
-    """Refuse a ``data`` block that states a shape :func:`make_chain` does
-    not make, naming the key."""
+def chain(n_versions: int) -> List[int]:
+    """The parents of a linear chain's versions ``1..n_versions-1``."""
+    return list(range(n_versions - 1))
+
+
+def check_shape(data: Dict, parents: Sequence[int]) -> None:
+    """Refuse a ``data`` block that states a shape :func:`make_log` does
+    not make, or a ``linear_chain`` whose ``parents`` branch, naming the
+    key."""
     for key, made in SHAPE.items():
-        if data.get(key) != made:
+        if data.get(key) not in made:
             raise ValueError(f"data.{key} = {data.get(key)!r}: the generator "
-                             f"makes only {made!r}")
+                             f"makes only {' or '.join(map(repr, made))}")
+    if data["topology"] == "linear_chain" and list(parents) != \
+            chain(len(parents) + 1):
+        raise ValueError("data.topology = 'linear_chain', but the traffic "
+                         "kind gives its versions other parents")
     total = sum(float(data[k]) for k in
                 ("frac_modify", "frac_insert", "frac_delete"))
     if abs(total - 1.0) > 1e-9:
@@ -88,7 +105,23 @@ def make_chain(data: Dict, n_base: int, n_versions: int, seed: int
                ) -> OpLog:
     """The op log of an A-family chain: a root of ``n_base`` records and
     ``n_versions - 1`` commits, each on the one before."""
-    check_shape(data)
+    return make_log(data, n_base, chain(n_versions), seed)
+
+
+def make_log(data: Dict, n_base: int, parents: Sequence[int], seed: int
+             ) -> OpLog:
+    """The op log of an A-family tree: a root of ``n_base`` records and one
+    commit for each entry of ``parents``, version ``v`` on ``parents[v -
+    1]``.  Commits are drawn in version order from one stream, so a chain
+    gives the same log whatever else the tree could have held."""
+    parents = [int(p) for p in parents]
+    check_shape(data, parents)
+    last_child: Dict[int, int] = {}     # version -> its newest child
+    for vid, parent in enumerate(parents, 1):
+        if not 0 <= parent < vid:
+            raise ValueError(f"version {vid} cannot have the parent "
+                             f"{parent}: a parent comes before its child")
+        last_child[parent] = vid
     rng = rng_for(seed, 1)
     R = int(data["record_size"])
     span = (None if data.get("p_d") is None
@@ -102,9 +135,15 @@ def make_chain(data: Dict, n_base: int, n_versions: int, seed: int
     rows = [fresh(n_base)]                  # payload rows, in id order
     n_pay = n_base
     live = np.arange(n_base, dtype=np.int64)
-    cur = live.copy()                       # key -> its payload id now
     log = OpLog(R, n_base, rows[0], live.copy(), live.copy(), [], n_base)
-    for vid in range(1, n_versions):
+    # a version a later commit builds on: (its live keys, key -> its payload
+    # id there); its newest child takes the arrays over, the others copy
+    heads = {0: (live, live.copy())}
+    for vid, parent in enumerate(parents, 1):
+        if last_child[parent] == vid:
+            live, cur = heads.pop(parent)
+        else:
+            live, cur = (a.copy() for a in heads[parent])
         n_sel = max(1, int(len(live) * pct))
         idx = rng.choice(len(live), size=n_sel, replace=False)
         n_mod, n_del = int(n_sel * f_mod), int(n_sel * f_del)
@@ -134,7 +173,9 @@ def make_chain(data: Dict, n_base: int, n_versions: int, seed: int
         keep = np.ones(len(live), dtype=bool)
         keep[idx[n_mod:n_mod + n_del]] = False
         live = np.concatenate([live[keep], new])
-        log.commits.append(Commit(vid, vid - 1, keys, pids, dels))
+        log.commits.append(Commit(vid, parent, keys, pids, dels))
+        if vid in last_child:
+            heads[vid] = (live, cur)
     log.payloads = np.concatenate(rows) if len(rows) > 1 else rows[0]
     return log
 

@@ -3,8 +3,11 @@
 ``BENCHMARK.json`` names each cell's configuration and traffic mix; the
 harness reads ``configs/<config>.json`` and ``traffic/<mix>.json``, and for
 each per-layer metric that lists the cell (or lists none) the reader
-``metrics/<metric>.py``.  Adding a configuration, a mix or a metric is
-adding its file and its entry: nothing here names one.
+``metrics/<metric>.py``.  The configuration names its store stack
+(``"stack"``, :data:`DEFAULT_STACK` where it names none), found as
+``stacks/<stack>.py``; the mix names its traffic kind (``"kind"``), found as
+``kinds/<kind>.py``.  Adding a configuration, a mix, a metric, a stack or a
+kind is adding its file and its entry: nothing here names one.
 """
 from __future__ import annotations
 
@@ -13,11 +16,15 @@ import json
 import os
 from dataclasses import dataclass, field
 from types import ModuleType
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 BENCH_DIR = os.path.dirname(HERE)
 ROOT = os.path.dirname(BENCH_DIR)
+
+
+# the stack of a configuration that names none: KV tables behind a router
+DEFAULT_STACK = "sharded"
 
 
 @dataclass
@@ -29,6 +36,8 @@ class Cell:
     end_to_end: List[Dict]
     per_layer: List[Dict]
     readers: Dict[str, ModuleType] = field(default_factory=dict)
+    stack: Optional[ModuleType] = None
+    kind: Optional[ModuleType] = None
 
 
 def load_benchmark() -> Dict:
@@ -52,19 +61,46 @@ def load_mix(name: str, bench_dir: str = BENCH_DIR) -> Dict:
     return _load_json("traffic", name, bench_dir)
 
 
-def load_reader(name: str, bench_dir: str = BENCH_DIR) -> ModuleType:
-    """``metrics/<name>.py`` as a module (metric names hold dots, so the
-    file is loaded by path, not imported by name)."""
-    path = os.path.join(bench_dir, "metrics", name + ".py")
+def _load_module(folder: str, what: str, name: str, bench_dir: str,
+                 needs: Sequence[str]) -> ModuleType:
+    """``<folder>/<name>.py`` as a module (names hold dots and dashes, so
+    the file is loaded by path, not imported by name), refused unless it
+    defines each function in ``needs``."""
+    path = os.path.join(bench_dir, folder, name + ".py")
     if not os.path.isfile(path):
-        raise FileNotFoundError(f"no reader for metric {name!r}: {path}")
+        raise FileNotFoundError(f"no {what} {name!r}: {path}")
     spec = importlib.util.spec_from_file_location(
-        "portbench_metric_" + name.replace(".", "_").replace("-", "_"), path)
+        f"portbench_{folder}_" + name.replace(".", "_").replace("-", "_"),
+        path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    if not callable(getattr(mod, "read", None)):
-        raise TypeError(f"{path} has no read(obs) function")
+    missing = [f for f in needs if not callable(getattr(mod, f, None))]
+    if missing:
+        raise TypeError(f"{path} has no {', '.join(missing)} function")
     return mod
+
+
+def load_reader(name: str, bench_dir: str = BENCH_DIR) -> ModuleType:
+    """``metrics/<name>.py``: ``read(obs)``."""
+    return _load_module("metrics", "reader for metric", name, bench_dir,
+                        ("read",))
+
+
+def load_stack(name: str, bench_dir: str = BENCH_DIR) -> ModuleType:
+    """``stacks/<name>.py``: ``build(T, config, device)`` gives ``(rs,
+    kvs)``; ``copies(kvs)`` is how many copies of each value the stack
+    keeps, and ``reading_from(kvs, i)`` a context in which reads are served
+    by copy ``i`` alone."""
+    return _load_module("stacks", "stack", name, bench_dir,
+                        ("build", "copies", "reading_from"))
+
+
+def load_kind(name: str, bench_dir: str = BENCH_DIR) -> ModuleType:
+    """``kinds/<name>.py``, a traffic kind (``harness/context.py`` says what
+    each function does)."""
+    return _load_module("kinds", "traffic kind", name, bench_dir,
+                        ("plan", "prepare", "window", "written", "readback",
+                         "measure"))
 
 
 def _applies(metric: Dict, cell: str, reported: set) -> bool:
@@ -89,4 +125,7 @@ def find_cell(name: str, bench: Optional[Dict] = None,
                 load_mix(w["traffic"], bench_dir), int(w["chips"]), e2e, layer)
     cell.readers = {m["name"]: load_reader(m["name"], bench_dir)
                     for m in layer}
+    cell.stack = load_stack(cell.config.get("stack", DEFAULT_STACK),
+                            bench_dir)
+    cell.kind = load_kind(cell.mix["kind"], bench_dir)
     return cell

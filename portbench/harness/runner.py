@@ -3,57 +3,27 @@
 ``run_cell`` takes the device as an argument so that the tests can drive a
 whole run on the CPU; ``run.py`` refuses to run anywhere but on the card.
 
-The window is closed loop with one client: the next request goes out when
-the last has come back, and the window closes with the first request that
-ends after ``seconds``; rates are taken over the whole window.  A read
-request is a wave of queries through ``StoreQueryEngine.serve``, timed from
-the call to the answers on the host.  An ingest request is one writer
-session of the mix's versions, acknowledged when its ``close()`` returns.
+The cell's store stack (``stacks/``) builds the deployment, and its traffic
+kind (``kinds/``, see ``context.py``) says which versions the op log holds
+and set-up loads, drives the window and reads back what it wrote.  Rates
+are taken over the whole window.
 
 After the window: the device's peak memory, the bytes the KVS holds, then
-(ingest) the acknowledged versions read back through the read path; then the
-program's state is freed and the reference answers every query of the
-window (and of the read-back) from its own replay of the op log.
+the kind's read-back; then the program's state is freed and the reference
+answers every query of the window (and of the read-back) from its own
+replay of the op log.
 """
 from __future__ import annotations
 
 import gc
-import sys
-from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
-
-import numpy as np
+from typing import Dict, Optional, Tuple
 
 from . import arith, faults, gen, store
+from .context import Run, Window, log
 from .observe import Observation
 from .registry import Cell
 from .spans import Launches, Spans, clock, resolve
 from .trace import Profiler, idle_by_host
-
-
-def log(*a) -> None:
-    print("[portbench]", *a, file=sys.stderr, flush=True)
-
-
-@dataclass
-class Window:
-    """What the window produced and what it took."""
-
-    attempted: int = 0
-    failed: int = 0
-    seconds: float = 0.0
-    latencies: List[float] = field(default_factory=list)
-    records: int = 0             # records returned (reads), acknowledged
-    units: int = 0               # requests (reads), versions (ingest)
-    answers: List[Tuple[Tuple, list]] = field(default_factory=list)
-
-
-def _n_records(value) -> int:
-    if value is None:
-        return 0
-    if isinstance(value, (dict, list)):
-        return len(value)
-    return 1
 
 
 def _counter(spec: str, kvs) -> float:
@@ -77,7 +47,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     t_process = clock() if t_process is None else t_process
     import torch
     import repro_torch.core as T
-    from repro_torch.serve.engine import StoreQueryEngine
+    import repro_torch.serve.engine  # noqa: F401  (reads go through it)
 
     t_start = clock()
     torch.set_num_threads(1)
@@ -92,43 +62,22 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
         _build.library()
     t_gen = clock()
     config = {**cell.config, **(scale or {})}
-    mix = cell.mix
-    kind = mix["kind"]
-    data = config["data"]
-    n_base = int(config["n_base_records"])
+    kind = cell.kind
 
     # ---------------------------------------------------------- set-up
-    if kind == "read":
-        log_ = gen.make_chain(data, n_base, int(config["n_versions"]), seed)
-        loaded = log_.n_versions
-    elif kind == "ingest":
-        per_version = max(1, int(n_base * float(data["pct_update"])))
-        S = int(mix["session_versions"])
-        warm = int(mix["warm_sessions"]) * S
-        need = float(mix["headroom_records_per_s"]) * seconds / per_version
-        n_window = S * (int(need) // S + 1)
-        log_ = gen.make_chain(data, n_base, 1 + warm + n_window, seed)
-        loaded = 1 + warm
-    else:
-        raise ValueError(f"unknown traffic kind {kind!r}")
+    parents, loaded = kind.plan(config, cell.mix, seconds)
+    log_ = gen.make_log(config["data"], int(config["n_base_records"]),
+                        parents, seed)
     t_data = clock()
-    versions = gen.version_dicts(log_, 0, log_.n_versions)
+    run = Run(T, config, cell.mix, seed, log_,
+              gen.version_dicts(log_, 0, log_.n_versions), loaded,
+              None, None, cell.stack, sync, 1 if fault == "stale" else 0)
     t_load = clock()
-    rs, kvs = store.make_store(T, config, dev)
-    store.load(rs, config, versions[:loaded])
+    run.rs, run.kvs = cell.stack.build(T, config, dev)
+    store.load(run.rs, config, run.versions[:loaded])
     sync()
     t_warm = clock()
-    engine = StoreQueryEngine(rs)
-    stale = 1 if fault == "stale" else 0
-
-    if kind == "read":
-        versions = None                # the load's copies are done with
-        n_req = int(mix["requests"])
-        requests = gen.read_requests(mix, log_, seed, n_req)
-        batches = [gen.to_queries(T.Q, r, stale) for r in requests]
-        for r in gen.read_requests(mix, log_, seed, int(mix["warm_requests"]),
-                                   stream=3):
-            engine.serve(gen.to_queries(T.Q, r))
+    kind.prepare(run)
     sync()
     log(f"set-up: start-up and imports {t_start - t_process:.3f} s, kernels "
         f"{t_gen - t_start:.3f} s, op log {t_data - t_gen:.3f} s, version "
@@ -153,21 +102,17 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     gc.collect()                       # set-up's garbage is not the window's
     win = Window()
     try:
-        c0 = {n: _counter(s, kvs) for n, s in counters.items()}
+        c0 = {n: _counter(s, run.kvs) for n, s in counters.items()}
         with prof.window():
             t_open = prof.t_open
             setup_s = t_open - t_process
             spans.start()
             launches.start()
-            if kind == "read":
-                _read_window(win, engine, requests, batches, seconds, sync)
-            else:
-                _ingest_window(win, rs, versions, loaded, S, seconds, sync,
-                               log_)
+            kind.window(run, win, seconds)
             spans.stop()
             launches.stop()
         win.seconds = prof.t_close - t_open
-        c1 = {n: _counter(s, kvs) for n, s in counters.items()}
+        c1 = {n: _counter(s, run.kvs) for n, s in counters.items()}
     finally:
         if planted is not None:
             planted.close()
@@ -177,45 +122,27 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     tr = prof.read() if trace else None
 
     # ---------------------------------------------------------- after it
-    stored = store.stored_bytes(kvs)
-    written = sum(log_.records_of(v) for v in range(loaded + win.units
-                                                    if kind == "ingest"
-                                                    else loaded))
-    raw = written * log_.record_size
-    readback: List[Tuple[Tuple, list]] = []
-    if kind == "ingest":
-        last = loaded + win.units - 1
-        rb = _readback_queries(mix, log_, seed, loaded, last)
-        try:
-            got = StoreQueryEngine(rs).serve(gen.to_queries(T.Q, rb, stale))
-            readback = [(rb, [r.value for r in got])]
-        except Exception as e:        # every read-back answer is then wrong
-            log(f"the read-back failed: {e!r}")
-            readback = [(rb, None)]
-        n_ref_versions = last + 1
-    else:
-        n_ref_versions = log_.n_versions
-    del engine, rs, kvs, versions
+    stored = store.stored_bytes(run.kvs)
+    n_written = kind.written(run, win)
+    raw = sum(log_.records_of(v) for v in range(n_written)) * log_.record_size
+    readback = kind.readback(run, win)
+    run.state.clear()                  # the program's state goes
+    run.rs = run.kvs = run.versions = None
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- the check
     t_check = clock()
-    mismatches, checked = _compare(log_, n_ref_versions,
-                                   win.answers + readback)
+    mismatches, checked = _compare(log_, n_written, win.answers + readback)
     log(f"check: {checked} answers against the reference in "
         f"{clock() - t_check:.3f} s; {mismatches} differ")
 
     measured = {
         "setup_s": setup_s,
         "stored_per_raw": stored / raw,
+        **kind.measure(win),
     }
-    if kind == "read" and win.latencies:
-        measured["read_p95_ms"] = 1e3 * arith.nearest_rank(win.latencies, 95)
-        measured["read_records_per_s"] = win.records / win.seconds
-    if kind == "ingest" and win.seconds > 0:
-        measured["ingest_records_per_s"] = win.records / win.seconds
     log(f"window: {win.seconds:.3f} s, {win.units} units, {win.attempted} "
         f"requests ({win.failed} failed), {win.records} records; "
         f"setup {setup_s:.3f} s; stored {stored} B for {raw} B raw")
@@ -234,7 +161,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
         for m in cell.end_to_end:
             if m["name"] not in measured:
                 raise RuntimeError(f"the harness measures no {m['name']!r} "
-                                   f"for a {kind} mix")
+                                   f"for a {cell.mix['kind']} mix")
             metrics[m["name"]] = {"value": measured[m["name"]],
                                   "unit": m["unit"]}
     else:
@@ -262,77 +189,6 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
         "failed_requests": {"value": win.failed, "limit": 0, "is": "max"},
         "answers_checked": {"value": checked, "limit": 1, "is": "min"}}
     return out
-
-
-def _read_window(win: Window, engine, requests, batches, seconds, sync
-                 ) -> None:
-    deadline = clock() + seconds
-    i = 0
-    while True:
-        j = i % len(batches)
-        t0 = clock()
-        try:
-            batch = engine.serve(batches[j])
-            sync()
-            values = [r.value for r in batch]
-        except Exception as e:        # a request that fails is counted
-            log(f"request {i} failed: {e!r}")
-            values = None
-            win.failed += 1
-        t1 = clock()
-        win.latencies.append(t1 - t0)
-        win.attempted += 1
-        if values is not None:
-            win.units += 1
-            win.records += sum(_n_records(v) for v in values)
-            win.answers.append((requests[j], values))
-        i += 1
-        if t1 >= deadline:
-            return
-
-
-def _ingest_window(win: Window, rs, versions, first, S, seconds, sync,
-                   log_) -> None:
-    deadline = clock() + seconds
-    nxt = first
-    while True:
-        sess = versions[nxt:nxt + S]
-        if len(sess) < S:
-            log("the pregenerated versions ran out before the window closed")
-            return
-        win.attempted += S
-        try:
-            store.write_session(rs, sess, nxt)
-            sync()
-        except Exception as e:
-            log(f"session of versions {nxt}..{nxt + S - 1} failed: {e!r}")
-            win.failed += S
-            return
-        t1 = clock()
-        win.units += S
-        win.records += sum(log_.records_of(v) for v in range(nxt, nxt + S))
-        nxt += S
-        if t1 >= deadline:
-            return
-
-
-def _readback_queries(mix: Dict, log_, seed: int, first: int, last: int
-                      ) -> Tuple:
-    """The read-back of an ingest window: the newest acknowledged version
-    whole, a sample of the window's other versions whole, and the evolution
-    of a sample of base keys (all drawn from the seed)."""
-    rb = mix["readback"]
-    rng = gen.rng_for(seed, 4)
-    vids = [last]
-    if last > first:
-        pool = np.arange(first, last)
-        vids += sorted(int(v) for v in rng.choice(
-            pool, size=min(int(rb["versions"]) - 1, len(pool)),
-            replace=False))
-    keys = rng.choice(log_.n_base, size=int(rb["evolution_keys"]),
-                      replace=False)
-    return tuple([("version", v) for v in vids]
-                 + [("evolution", int(k)) for k in keys])
 
 
 def _compare(log_, n_versions: int, answers) -> Tuple[int, int]:

@@ -1,9 +1,7 @@
-"""The system under test, built from a configuration file.
+"""Writing versions to the system under test, whatever its stack.
 
-The deployment is ``config["shards"]`` KV nodes, each one
-``ShardedDeviceKVS`` table of ``slot_bytes`` slots on the card, behind a
-``ShardedKVS`` router, under one ``RStore`` with the configuration's store
-settings.  ``load`` writes versions the way the configuration says:
+The store stack (``stacks/<stack>.py``) builds the deployment from its
+configuration.  ``load`` writes versions the way the configuration says:
 ``online`` through writer sessions, each closed by its group flush;
 ``offline`` staged through writer sessions without a flush, then one
 ``build()``.
@@ -13,16 +11,14 @@ from __future__ import annotations
 from typing import Dict, List, Sequence, Tuple
 
 
-def make_store(T, config: Dict, device):
-    kvs = T.ShardedKVS([T.ShardedDeviceKVS(slot_bytes=int(config["slot_bytes"]),
-                                           device=device)
-                        for _ in range(int(config["shards"]))])
+def rstore(T, config: Dict, kvs, device):
+    """One ``RStore`` over ``kvs`` with the configuration's store
+    settings."""
     st = config["store"]
-    rs = T.RStore(T.RStoreConfig(
+    return T.RStore(T.RStoreConfig(
         algorithm=st["algorithm"], capacity=int(st["capacity"]),
         k=int(st["k"]), batch_size=int(st["batch_size"]),
         beta=int(st["beta"])), kvs, device=device)
-    return rs, kvs
 
 
 def write_session(rs, versions: Sequence[Tuple[int, Dict[int, bytes], list]],

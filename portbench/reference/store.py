@@ -8,8 +8,10 @@ and its deletes removed; a record read at version ``v`` is the copy the
 newest version at or below ``v`` on its lineage wrote; a key's evolution is
 every copy ever written, oldest first, with the version that wrote it.
 
-The chain is linear (dataset family A), so a key's copy at version ``v`` is
-its last write at a version ``<= v``, unless a delete came after it.
+The versions form a tree, each commit naming its parent, which comes before
+it.  So a key's copy at version ``v`` is its newest write on ``v``'s lineage
+(the path from the root to ``v``), unless a delete on that path came after
+it.  On a linear chain the lineage is every version ``<= v``.
 """
 from __future__ import annotations
 
@@ -22,7 +24,9 @@ DELETED = -1
 
 class Replay:
     """Every write and delete of the op log as one table of events sorted by
-    (key, version).  ``payload_of`` maps a payload id to its bytes."""
+    (key, version), and each version's parent.  ``commits`` come in version
+    order, ``(vid, parent, keys, pids, deleted keys)``; ``payloads[pid]``
+    is a payload's bytes."""
 
     def __init__(self, root: Tuple[np.ndarray, np.ndarray],
                  commits: Sequence[Tuple[int, int, np.ndarray, np.ndarray,
@@ -30,10 +34,13 @@ class Replay:
                  payloads: np.ndarray) -> None:
         keys, vids, pids = [root[0]], [np.zeros(len(root[0]), np.int64)], \
             [root[1]]
+        self.parent = [-1]
         for i, (vid, parent, ks, ps, dels) in enumerate(commits):
-            if vid != i + 1 or parent != vid - 1:
-                raise ValueError(f"version {vid} (parent {parent}) breaks "
-                                 "the linear chain this replay expects")
+            if vid != i + 1 or not 0 <= parent < vid:
+                raise ValueError(f"version {vid} (parent {parent}): commits "
+                                 "come in version order, each after its "
+                                 "parent")
+            self.parent.append(int(parent))
             keys += [ks, dels]
             vids += [np.full(len(ks) + len(dels), vid, np.int64)]
             pids += [ps, np.full(len(dels), DELETED, np.int64)]
@@ -50,12 +57,20 @@ class Replay:
         return self.payloads[pid].tobytes()
 
     # ------------------------------------------------------------ versions
+    def lineage(self, vid: int) -> np.ndarray:
+        """Whether each version lies on the path from the root to ``vid``."""
+        on = np.zeros(self.n_versions, dtype=bool)
+        while vid >= 0:
+            on[vid] = True
+            vid = self.parent[vid]
+        return on
+
     def state(self, vid: int) -> Tuple[np.ndarray, np.ndarray]:
         """(sorted live keys, their payload ids) at version ``vid``."""
         if not 0 <= vid < self.n_versions:
             raise KeyError(f"version {vid} was never committed")
         if vid not in self._states:
-            m = self.v <= vid
+            m = self.lineage(vid)[self.v]
             k, p = self.k[m], self.p[m]
             last = np.ones(len(k), dtype=bool)
             last[:-1] = k[1:] != k[:-1]           # a key's newest event

@@ -78,7 +78,7 @@ def test_same_seed_same_work():
 
 
 @pytest.mark.parametrize("key,value", [("update_dist", "zipf"),
-                                       ("topology", "tree"),
+                                       ("topology", "dag"),
                                        ("family", "B"),
                                        ("frac_insert", 0.5)])
 def test_a_shape_the_generator_does_not_make_is_refused(key, value):

@@ -74,7 +74,7 @@ def test_benchmark_json_keeps_to_the_contract():
 
 def _copy_bench(tmp_path):
     dst = tmp_path / "portbench"
-    for sub in ("configs", "traffic", "metrics"):
+    for sub in ("configs", "traffic", "metrics", "kinds", "stacks"):
         shutil.copytree(os.path.join(registry.BENCH_DIR, sub), dst / sub)
     return dst
 

@@ -1,5 +1,6 @@
-"""Gateway ingest: ``mix["clients"]`` named clients, each writing a line of
-its own through one ``IngestGateway``, closed loop.
+"""Gateway ingest, for a mix whose ``kind`` is ``"gateway"``:
+``mix["clients"]`` named clients, each writing a line of its own through
+one ``IngestGateway``, closed loop.
 
 Set-up loads the root and ``mix["warm_versions"]`` commits on it as a chain,
 then opens the gateway, which attaches a ``BackgroundFlusher`` to the store.

@@ -1,4 +1,7 @@
-"""Replica groups: ``config["shards"]`` KV nodes, each a ``ReplicatedKVS``
+"""The replicated store stack, for a configuration whose ``stack`` is
+``"replicated"``.
+
+Replica groups: ``config["shards"]`` KV nodes, each a ``ReplicatedKVS``
 of ``config["replicas"]`` ``ShardedDeviceKVS`` tables (``slot_bytes``
 slots) on the card whose writes ``config["write_quorum"]`` of them
 acknowledge, behind a ``ShardedKVS`` router, under one ``RStore`` with the

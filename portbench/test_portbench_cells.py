@@ -15,18 +15,20 @@ SEED = 2**31 + 11          # seeds may exceed 32 signed bits
 
 
 def cell(config: str, mix: str) -> registry.Cell:
-    """A cell of ``config`` under ``mix`` with every metric that fits it."""
+    """A cell of ``config`` under ``mix`` with every per-layer metric that a
+    cell of ``mix`` in ``BENCHMARK.json`` reports."""
     bench = registry.load_benchmark()
     moves = {"lookup": "read_p95_ms", "snapshot": "read_records_per_s",
              "ingest": "ingest_records_per_s"}[mix]
     name = f"{config}.{mix}"
+    of_mix = {w["name"] for w in bench["workloads"] if w["traffic"] == mix}
     bench["workloads"] = [{"name": name, "config": config, "traffic": mix,
                            "chips": 1, "why": "test"}]
     for m in bench["end_to_end"]:
         if m["name"] == moves:
             m["workloads"] = [name]
     bench["per_layer"] = [dict(m, workloads=[name]) for m in bench["per_layer"]
-                          if m["moves"] == moves
+                          if of_mix & set(m.get("workloads", ()))
                           and not m["name"].startswith("xor_delta_roofline")]
     return registry.find_cell(name, bench=bench)
 

@@ -6,29 +6,62 @@ import os
 import re
 import shutil
 
+import pytest
+
 from portbench.harness import registry, runner
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
 
 
-def test_every_cell_is_found_with_its_pieces():
-    bench = registry.load_benchmark()
+def cells_are_found(bench: dict, bench_dir: str) -> None:
+    """Each cell of ``bench`` found under ``bench_dir`` with its pieces: the
+    stack and the traffic kind each from the file its name gives, whatever
+    the name (``registry`` refuses a module without its functions)."""
     for w in bench["workloads"]:
-        c = registry.find_cell(w["name"], bench=bench)
+        c = registry.find_cell(w["name"], bench=bench, bench_dir=bench_dir)
         assert c.config["name"] == w["config"]
-        assert c.mix["kind"] in ("read", "ingest")
+        stack = c.config.get("stack", registry.DEFAULT_STACK)
+        assert c.stack.__file__ == os.path.join(bench_dir, "stacks",
+                                                stack + ".py")
+        assert c.kind.__file__ == os.path.join(bench_dir, "kinds",
+                                               c.mix["kind"] + ".py")
         assert set(c.readers) == {m["name"] for m in c.per_layer}
         assert any(m["name"] == "setup_s" for m in c.end_to_end)
         assert len(c.end_to_end) >= 2 and c.per_layer
 
 
-def test_benchmark_json_keeps_to_the_contract():
-    root = registry.ROOT
-    bench = registry.load_benchmark()
+def test_every_cell_is_found_with_its_pieces():
+    cells_are_found(registry.load_benchmark(), registry.BENCH_DIR)
+
+
+# what registry.load_stack and load_kind ask of a module
+NEEDS = {"stacks": ("build", "copies", "reading_from"),
+         "kinds": ("plan", "prepare", "window", "written", "readback",
+                   "measure")}
+PLUG_INS = sorted((folder, f[:-3]) for folder in NEEDS
+                  for f in os.listdir(os.path.join(registry.BENCH_DIR, folder))
+                  if f.endswith(".py"))
+
+
+@pytest.mark.parametrize("folder,name", PLUG_INS,
+                         ids=[f"{f}/{n}" for f, n in PLUG_INS])
+def test_each_kind_and_stack_loads_with_its_functions(folder, name):
+    load = {"stacks": registry.load_stack, "kinds": registry.load_kind}
+    mod = load[folder](name)
+    assert mod.__file__ == os.path.join(registry.BENCH_DIR, folder,
+                                        name + ".py")
+    assert all(callable(getattr(mod, f)) for f in NEEDS[folder])
+
+
+def keeps_to_the_contract(bench: dict, bench_dir: str) -> None:
+    """``bench``, with its configurations' files under ``bench_dir``,
+    against the benchmark's contract."""
     assert set(bench) == {"command", "paths", "run_seconds", "configs",
                           "workloads", "end_to_end", "per_layer"}
-    assert os.path.getsize(os.path.join(root, "BENCHMARK.json")) <= 64 << 10
+    assert len(json.dumps(bench, indent=1)) <= 64 << 10
+    for key in ("configs", "workloads", "end_to_end", "per_layer"):
+        assert len({e["name"] for e in bench[key]}) == len(bench[key]), key
     assert bench["paths"] == ["portbench"]
     assert 1 <= bench["run_seconds"] <= 51
     assert len(bench["workloads"]) * 14 + 2 <= 43200
@@ -36,7 +69,7 @@ def test_benchmark_json_keeps_to_the_contract():
     for c in bench["configs"]:
         assert set(c) == {"name", "source", "file", "reduced", "why"}
         assert NAME.match(c["name"]) and c["file"].startswith("portbench/")
-        cfg = registry.load_config(c["name"])
+        cfg = registry.load_config(c["name"], bench_dir)
         assert cfg["source"] == c["source"] and len(c["source"]) <= 200
         assert set(c["reduced"]) <= set(cfg) and cfg["reduced"] == c["reduced"]
         assert not any(k.endswith(("_dim", "_rank")) for k in c["reduced"])
@@ -70,6 +103,12 @@ def test_benchmark_json_keeps_to_the_contract():
     for m in bench["per_layer"]:
         layers.setdefault(m["layer"].lower(), set()).add(m["layer"])
     assert all(len(v) == 1 for v in layers.values())
+
+
+def test_benchmark_json_keeps_to_the_contract():
+    path = os.path.join(registry.ROOT, "BENCHMARK.json")
+    assert os.path.getsize(path) <= 64 << 10
+    keeps_to_the_contract(registry.load_benchmark(), registry.BENCH_DIR)
 
 
 def _copy_bench(tmp_path):
